@@ -2,12 +2,13 @@
 
 The scheduling stack (``data/traces.py`` synthesis, ``core/selection.py``
 solvers) calls array math through an :class:`ArrayBackend` instead of
-``np.*`` directly. ``get_backend("numpy")`` returns the bit-exact host
-reference; ``get_backend("torch")`` returns the PyTorch backend with
-device-resident fleet columns and reach state; ``get_backend("cuda")``
-layers the hand-written CUDA counter-hash kernels on top of it. Both
-device backends build on ``cuda:0`` and raise when CUDA is absent; a
-caller that wants the CPU passes an instance instead, e.g.
+``np.*`` directly. ``get_backend("cuda")`` — also the default, and
+also named ``"torch"`` — returns the device backend: PyTorch ops with
+device-resident fleet columns and reach state, and the hand-written
+CUDA counter-hash kernels for the synthesis grids. It builds on
+``cuda:0`` and raises when CUDA is absent. ``get_backend("numpy")``
+returns the bit-exact host reference, for a caller that asks for it; a
+caller that wants the device path on the CPU passes an instance, e.g.
 ``RunSection(backend=CudaBackend(device="cpu"))``. The parity contract
 between them is documented in :mod:`repro_torch.backend.base`;
 selection is surfaced as the ``backend=`` knob on
@@ -37,21 +38,21 @@ def available_backends():
 def get_backend(spec=None) -> ArrayBackend:
     """Resolve ``spec`` to a backend singleton.
 
-    ``spec`` may be ``None`` (→ numpy), a backend name, or an
+    ``spec`` may be ``None`` (→ cuda), a backend name, or an
     :class:`ArrayBackend` instance (returned as-is, so already-resolved
-    backends thread through dataclasses unchanged).
+    backends thread through dataclasses unchanged). ``"torch"`` names
+    the same singleton as ``"cuda"``.
     """
     if isinstance(spec, ArrayBackend):
         return spec
-    name = "numpy" if spec is None else str(spec).lower()
+    name = "cuda" if spec is None else str(spec).lower()
+    if name == "torch":
+        name = "cuda"
     got = _SINGLETONS.get(name)
     if got is not None:
         return got
     if name == "numpy":
         bk: ArrayBackend = NumpyBackend()
-    elif name == "torch":
-        from .torch_backend import TorchBackend
-        bk = TorchBackend()
     elif name == "cuda":
         from .cuda_backend import CudaBackend
         bk = CudaBackend()

@@ -1,42 +1,14 @@
-"""CUDA backend: the PyTorch backend with the hand-written counter-hash
-kernels.
+"""The ``"cuda"`` backend: the registry's name for the device path.
 
-Extends :class:`~.torch_backend.TorchBackend` by sending the two
-synthesis-grid ops to the CUDA kernels of
-:mod:`repro_torch.kernels.counter_hash` — ``synth_window`` to
-``piece_window`` (K1) and ``forecast_noise_z`` to ``forecast_z`` (K2),
-one launch and one tick per window — and inherits everything else.
-Same bit-exactness contract. On a CPU device the kernel wrappers run
-their plain PyTorch versions, which is how the CPU tests reach this
-class.
-
-``window_shapes`` counts the (op, R, W) shape of every window this
-backend has served, so a run can show what the kernels were given.
+:class:`~.torch_backend.TorchBackend` already sends ``synth_window`` and
+``forecast_noise_z`` to the hand-written CUDA kernels, so this class
+adds nothing but its name; ``get_backend("torch")`` returns the same
+singleton as ``get_backend("cuda")``.
 """
 from __future__ import annotations
 
-from collections import Counter
-
-from ..kernels import counter_hash
 from .torch_backend import TorchBackend
 
 
 class CudaBackend(TorchBackend):
     name = "cuda"
-
-    def __init__(self, device=None):
-        super().__init__(device)
-        self.window_shapes: Counter = Counter()
-
-    def synth_window(self, levels, slot, fold, rows, t0, amp):
-        lv, sl, rw = self._window_args(levels, slot, rows)
-        self._tick("synth_window")
-        self.window_shapes["synth_window", *sl.shape] += 1
-        return self._np(counter_hash.piece_window(lv, sl, fold, rw, t0, amp))
-
-    def forecast_noise_z(self, fc_fold, rows, now, horizon, std):
-        rw, sd = self._forecast_args(rows, horizon, std)
-        self._tick("forecast_noise_z")
-        self.window_shapes["forecast_noise_z", rw.shape[0], horizon] += 1
-        # a fresh writable array: callers apply np.exp(z, out=z) in place
-        return self._np(counter_hash.forecast_z(fc_fold, rw, now, sd))

@@ -9,6 +9,14 @@ control flow around it (``core``, ``data``) stays NumPy, as in the
 reference; ``chunk_rng`` and ``reach_tables`` stay host-pinned by
 contract.
 
+The two synthesis-grid ops go to the hand-written CUDA kernels of
+:mod:`repro_torch.kernels.counter_hash`: ``synth_window`` to
+``piece_window`` (K1) and ``forecast_noise_z`` to ``forecast_z`` (K2),
+one launch and one tick per window. On a CPU device the kernel wrappers
+run their plain PyTorch versions, which is how the CPU tests reach them.
+``window_shapes`` counts the (op, R, W) shape of every window served, so
+a run can show what the kernels were given.
+
 Where PyTorch could break bit parity, and what this module does:
 
 * **uint64 hashing** — torch has no uint64 add, shift or multiply on the
@@ -41,11 +49,13 @@ uploads only its per-duration thresholds and ranks.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
-from ..kernels.counter_hash import (cheap_u01_t, forecast_z_plain, i64,
-                                    piece_window_plain, sm64_t, srl)
+from ..kernels import counter_hash
+from ..kernels.counter_hash import cheap_u01_t, i64, sm64_t, srl
 from .base import MARGIN, _reach_rank
 from .base import sm64 as host_sm64
 from .numpy_backend import NumpyBackend
@@ -87,6 +97,7 @@ class TorchBackend(NumpyBackend):
                     f"e.g. {type(self).__name__}(device='cpu')")
             device = "cuda:0"
         self.device = torch.device(device)
+        self.window_shapes: Counter = Counter()
 
     def __repr__(self):
         return f"<ArrayBackend {self.name} on {self.device}>"
@@ -154,13 +165,15 @@ class TorchBackend(NumpyBackend):
     def synth_window(self, levels, slot, fold, rows, t0, amp):
         lv, sl, rw = self._window_args(levels, slot, rows)
         self._tick("synth_window")
-        return self._np(piece_window_plain(lv, sl, fold, rw, t0, amp))
+        self.window_shapes["synth_window", *sl.shape] += 1
+        return self._np(counter_hash.piece_window(lv, sl, fold, rw, t0, amp))
 
     def forecast_noise_z(self, fc_fold, rows, now, horizon, std):
         rw, sd = self._forecast_args(rows, horizon, std)
         self._tick("forecast_noise_z")
+        self.window_shapes["forecast_noise_z", rw.shape[0], horizon] += 1
         # a fresh writable array: callers apply np.exp(z, out=z) in place
-        return self._np(forecast_z_plain(fc_fold, rw, now, sd))
+        return self._np(counter_hash.forecast_z(fc_fold, rw, now, sd))
 
     # -- greedy-solver elementwise math ----------------------------------
     def _takes(self, spare, budget_rows, delta):

@@ -117,11 +117,12 @@ class RunSection:
     convention); both ``None`` runs to the end of the scenario.
 
     ``backend`` picks the array backend for the scheduling hot path
-    (``repro_torch.backend.available_backends()``: ``"numpy"`` is the
-    bit-exact host reference, ``"torch"`` the PyTorch device path on
-    ``cuda:0``, ``"cuda"`` the same with the hand-written CUDA synthesis
-    kernels; an :class:`~repro_torch.backend.ArrayBackend` instance such
-    as ``CudaBackend(device="cpu")`` picks another device). It threads
+    (``repro_torch.backend.available_backends()``: ``"cuda"``, the
+    default, is the device path on ``cuda:0`` with the hand-written CUDA
+    synthesis kernels and raises without CUDA; ``"torch"`` names the same
+    backend; ``"numpy"`` is the bit-exact host reference, run only when
+    asked for; an :class:`~repro_torch.backend.ArrayBackend` instance
+    such as ``CudaBackend(device="cpu")`` picks another device). It threads
     into both the scenario store (sparse-util gather grids) and the
     selection solvers, and wins over any ``backend`` in the strategy
     section's options — the run decides where its math executes.
@@ -142,7 +143,7 @@ class RunSection:
     eval_every: int = 5
     seed: int = 0
     verbose: bool = False
-    backend: str = "numpy"
+    backend: str = "cuda"
     exact_uncapped: Optional[bool] = None
 
 

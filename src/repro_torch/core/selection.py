@@ -72,7 +72,7 @@ class SelectionInputs:
     sigma: np.ndarray          # [K] statistical utility (0 = blocked)
     rows: np.ndarray           # [K] registry row per candidate
     dom: np.ndarray            # [K] domain row (into r_excess) per candidate
-    backend: object = None     # ArrayBackend / name / None (numpy)
+    backend: object = None     # ArrayBackend / name / None (cuda)
 
     def arrays(self):
         """SoA client data gathered for the candidate rows (cached).
@@ -458,7 +458,7 @@ class LazySelectionInputs:
     # landscapes (tight bounds + the tie-exact admission rule), so the
     # cap is unnecessary — the `1m_1day` benchmark runs uncapped.
     candidate_cap: int = 0
-    backend: object = None     # ArrayBackend / name / None (numpy)
+    backend: object = None     # ArrayBackend / name / None (cuda)
     # exact-uncapped reach evaluator inputs (optional): the candidates'
     # spare-fraction upper bounds as regime segments over the forecast
     # window (``ScenarioStore.spare_ub_overlay`` CSR dict, window-

@@ -40,17 +40,17 @@ def bk(request):
 
 def test_registry_names_and_device_default():
     assert available_backends() == ("cuda", "numpy", "torch")
-    np_bk = port_get_backend("numpy")
-    assert port_get_backend(None) is np_bk and np_bk.name == "numpy"
+    assert port_get_backend("numpy").name == "numpy"
     cpu = CudaBackend(device="cpu")
     assert port_get_backend(cpu) is cpu          # instance passthrough
     with pytest.raises(KeyError):
         port_get_backend("jax")
-    for name in ("torch", "cuda"):
+    # no name given means the card; "torch" names the same backend
+    for name in (None, "torch", "cuda"):
         if torch.cuda.is_available():
             got = port_get_backend(name)
             assert got.device == torch.device("cuda:0")
-            assert port_get_backend(name) is got  # singleton
+            assert got is port_get_backend("cuda")  # one singleton
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 port_get_backend(name)

@@ -18,7 +18,10 @@ import jax
 import jax.experimental
 
 # this jax names the x64 context manager jax.enable_x64; the reference
-# kernels import it from jax.experimental
+# kernels import it from jax.experimental. The alias is process-wide and
+# set when this file is collected, which every pytest process (each
+# xdist worker included) does for the whole suite before it runs a test,
+# so every test of the run sees it.
 jax.experimental.enable_x64 = jax.enable_x64
 
 import numpy as np

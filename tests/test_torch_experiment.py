@@ -62,6 +62,23 @@ def test_config_from_reference_carries_every_field():
             np.testing.assert_equal(got[k], v, err_msg=f"{name}.{k}")
 
 
+def test_run_defaults_to_the_card():
+    """A run that names no backend runs on ``cuda:0``, and raises where
+    there is none: it never falls back to the host."""
+    from repro_torch.core import (ExperimentConfig, FleetSection, RunSection,
+                                  ScenarioSection, build_experiment)
+    assert RunSection().backend == "cuda"
+    cfg = ExperimentConfig(
+        scenario=ScenarioSection(name="global", days=1, util_mode="sparse"),
+        fleet=FleetSection(n_clients=50), run=RunSection(until_step=30))
+    if torch.cuda.is_available():
+        sim = build_experiment(cfg)
+        assert sim.scenario.backend.device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_experiment(cfg)
+
+
 def test_sparse_exact_uncapped_fedzero_matches_reference():
     """The 1M gate's configuration (sparse util, exact uncapped greedy
     FedZero) at 5000 clients over half a simulated day."""
