@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test and measurement of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--until-step N] [--clients N]
+    python3 chip_smoke.py [--until-step N] [--clients N] [--phases P,...]
 
 Run from the root of a checkout on a host with a CUDA device. It builds
-the port's CUDA kernels from ``src/repro_torch/csrc`` and then runs four
-phases, each printing JSON lines:
+the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, all started together) and then runs six phases, each printing
+JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, the kernel build time and the compiler's register
+   CUDA versions, the kernels' build time and the compiler's register
    report.
 2. ``kernel`` — K1 ``piece_window`` and K2 ``forecast_z`` on the card at
    the main path's full window (2^20 rows × 64 steps), a ragged 70 000 ×
@@ -29,11 +30,37 @@ phases, each printing JSON lines:
    then the same on the NumPy backend: round results and total energy
    must be identical, and both kernels must have launched on the
    ``cuda`` run.
+5. ``kernel`` for K3 ``flash_attention`` — against its plain PyTorch
+   version on the card, element by element within ``ATTN_TOL`` (below),
+   at the llama3.2-3b prefill shape (B 4, H 32, KV 8, S = Sk = 2048,
+   dh 128, in the [B, S, H, dh] layout the model passes, bf16 and f32),
+   GQA 2:1 at dh 64, dh 80 with KV = H, a sliding window of 1024, S < Sk,
+   a ragged S = 1000, non-causal, and three small ragged cases (a
+   non-causal 33 × 77, S = Sk = 1, a window of 16 at S = 70). At the
+   llama shape: K3, plain and ``scaled_dot_product_attention`` ms over
+   CUDA events, and the bound.
+6. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
+   ``build_model`` and the inference demo's functions: batch 4, prompt
+   2048, 16 greedy tokens. The launch counts are set to 0 just before
+   this run and read just after (K3 must launch once per layer of the
+   prefill: 28). Then, on the same weights: the prefill's last-position
+   logits on the K3 route against the einsum route, and ``decode_step``
+   after ``prefill(S - 1)`` against the last logits of ``prefill(S)``,
+   each within ``LOGIT_TOL`` (max abs difference, relative to the largest
+   logit) and with each row's greedy token within that tolerance of the
+   other side's maximum; and the K/V cache that ``decode_step`` leaves
+   against the one ``prefill(S)`` builds, within ``CACHE_TOL`` at the
+   slot the step wrote and at the slots before it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before the last line. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
+
+``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
+``main_path`` (4), ``k3`` (5) and ``model`` (6), after ``env``, and
+then stops without the closing lines: ``--phases k3`` is the quick check
+of a new K3 build.
 """
 from __future__ import annotations
 
@@ -50,9 +77,31 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
-K1_SOURCE = "src/repro_torch/csrc/counter_hash.cu"
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+SOURCES = {"piece_window": "src/repro_torch/csrc/counter_hash.cu",
+           "forecast_z": "src/repro_torch/csrc/counter_hash.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"piece_window": "src/repro/kernels/counter_hash.py:102",
-            "forecast_z": "src/repro/kernels/counter_hash.py:138"}
+            "forecast_z": "src/repro/kernels/counter_hash.py:138",
+            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
+# K3 against its plain version, element by element: |out - want| <= atol +
+# rtol * |want|. Both compute in float32 and differ by summation order
+# only (K3 carries bf16 P as two bf16 parts); a bf16 output then differs by
+# at most one rounding step, at most 2^-7 of |want|.
+ATTN_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (1e-4, 1e-2)}
+# llama3.2-3b bf16 logits, route against route: max |a - b| <= LOGIT_TOL *
+# max |b|. The routes round at other places through 28 layers: sound runs
+# read 0.023-0.028 of the largest logit; planted faults read 0.049 (the new
+# token's K/V slot left unwritten in decode) and 0.95-0.97 (K3 with its
+# last key tile masked, or with a window) (PERF.md, PR 12).
+LOGIT_TOL = 0.04
+# decode_step's K/V cache against prefill's, per tensor: max |a - b| <=
+# CACHE_TOL * max |b|, at the slot the step wrote and at the others. Sound
+# runs read 0.020 (K) and 0.028 (V) at the new slot and 0 at the others; a
+# slot left unwritten reads 1 (PERF.md, PR 12).
+CACHE_TOL = 0.25
+LLAMA = dict(arch="llama3.2-3b", batch=4, prompt=2048, gen=16)
+PHASES = ("kernels", "ops", "main_path", "k3", "model")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -324,6 +373,197 @@ def check_ops(torch, bk, host):
 
 
 # --------------------------------------------------------------------------
+# phase 5: K3 flash attention
+
+
+def attn_case(torch, gen, B, H, KV, S, Sk, dh, dtype):
+    """q, k, v as the model passes them: [B, S, H, dh] activations seen as
+    [B, H, S, dh] through a transpose (no copy)."""
+    dev = gen.device
+
+    def one(n, heads):
+        x = torch.randn((B, n, heads, dh), generator=gen, device=dev)
+        return x.to(dtype).transpose(1, 2)
+    return one(S, H), one(Sk, KV), one(Sk, KV)
+
+
+def check_flash_attention(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(torch.device("cuda:0")).manual_seed(3)
+    cases = [  # B, H, KV, S, Sk, dh, causal, window
+        ("llama3.2-3b prefill", 4, 32, 8, 2048, 2048, 128, True, 0),
+        ("GQA 2:1, dh 64", 2, 16, 8, 1024, 1024, 64, True, 0),
+        ("dh 80, KV = H", 2, 32, 32, 512, 512, 80, True, 0),
+        ("sliding window 1024", 2, 32, 8, 2048, 2048, 128, True, 1024),
+        ("S < Sk", 2, 32, 8, 512, 2048, 128, True, 0),
+        ("ragged S", 2, 32, 8, 1000, 1000, 128, True, 0),
+        ("non-causal", 2, 16, 8, 1024, 1024, 64, False, 0),
+        ("non-causal 33 x 77, dh 80", 1, 4, 2, 33, 77, 80, False, 0),
+        ("S = Sk = 1", 1, 4, 2, 1, 1, 64, True, 0),
+        ("window 16, S 70", 3, 6, 3, 70, 70, 80, True, 16),
+    ]
+    llama = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = ATTN_TOL[str(dtype)]
+        for name, B, H, KV, S, Sk, dh, causal, window in cases:
+            q, k, v = attn_case(torch, gen, B, H, KV, S, Sk, dh, dtype)
+            n0 = fa.flash_attention.launches
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            require(fa.flash_attention.launches == n0 + 1, "K3 did not count")
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            # the largest error in units of its limit: <= 1 passes
+            ratio = float((diff / (atol + rtol * want.float().abs())).max())
+            line = dict(name="flash_attention", case=name, dtype=str(dtype),
+                        B=B, H=H, KV=KV, S=S, Sk=Sk, dh=dh, causal=causal,
+                        window=window, max_abs_err=err, atol=atol, rtol=rtol,
+                        err_over_limit=ratio,
+                        rms_out=float(want.float().pow(2).mean().sqrt()))
+            ok = ratio <= 1.0
+            if name == "llama3.2-3b prefill":
+                flops = 4 * B * H * S * Sk * dh / (2 if causal else 1)
+                nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+                    * q.element_size()
+                peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+                op_ms = 1e3 * flops / peak
+                byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+                lib = F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+                line.update(
+                    ms=cuda_ms(torch, lambda: fa.flash_attention(
+                        q, k, v, causal=causal, window=window), 10),
+                    plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
+                        q, k, v, causal=causal, window=window), 3),
+                    library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), 10),
+                    library_max_abs_err=float(
+                        (lib.float() - want.float()).abs().max()),
+                    flops=flops, bytes=nbytes, bound_ms=max(op_ms, byte_ms),
+                    bound_by="operations" if op_ms >= byte_ms else "bytes")
+                llama[str(dtype)] = line
+                del lib
+            emit("kernel", **line)
+            require(ok, f"K3 != plain: {name} {dtype}, max_abs_err {err}, "
+                    f"{ratio} x the limit")
+            del q, k, v, out, want, diff
+            torch.cuda.empty_cache()
+    return llama
+
+
+# --------------------------------------------------------------------------
+# phase 6: llama3.2-3b inference
+
+
+def logits_agree(torch, a, b):
+    """max |a - b|, that over max |b|, and the greedy gap: how far below
+    b's largest logit b puts a's greedy token (or a puts b's), at most
+    over the rows. Both must be within LOGIT_TOL * max |b|."""
+    a, b = a.float()[:, -1], b.float()[:, -1]
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    tol = LOGIT_TOL * scale
+    ia, ib = a.argmax(-1), b.argmax(-1)
+    gap = torch.maximum(b.max(-1).values - b.gather(-1, ia[:, None])[:, 0],
+                        a.max(-1).values - a.gather(-1, ib[:, None])[:, 0])
+    gap = float(gap.max())
+    return {"max_abs_diff": diff, "rel_diff": diff / scale, "tol": tol,
+            "greedy_equal": int((ia == ib).sum()), "greedy_gap": gap,
+            "rows": int(a.shape[0]), "ok": diff <= tol and gap <= tol}
+
+
+def cache_agree(torch, a, b, slot):
+    """K and V of cache ``a`` against ``b`` ([L, B, C, KV, dh]): max |a - b|
+    over max |b| at ``slot`` and over the slots before it, and whether the
+    lengths are equal."""
+    out = {"length_equal": bool(torch.equal(a.length, b.length))}
+    for name in ("k", "v"):
+        x, y = getattr(a, name), getattr(b, name)
+        for part, sl in (("new_slot", slice(slot, slot + 1)),
+                         ("old_slots", slice(0, slot))):
+            xs, ys = x[:, :, sl].float(), y[:, :, sl].float()
+            out[f"{name}_{part}"] = float((xs - ys).abs().max()
+                                          / ys.abs().max())
+            del xs, ys
+    out["ok"] = out["length_equal"] and all(
+        v <= CACHE_TOL for k, v in out.items() if k.endswith("slot")
+        or k.endswith("slots"))
+    return out
+
+
+def run_model(torch):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import inference_demo as demo
+
+    dev = torch.device("cuda:0")
+    B, P, gen = LLAMA["batch"], LLAMA["prompt"], LLAMA["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(LLAMA["arch"], False, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(model.use_flash_kernel, "the demo's model is not on K3")
+        prompts = demo.make_prompts(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :256], 2)       # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = bool(torch.isfinite(out["logits"]).all())
+
+        # the same weights on the einsum route
+        model.use_flash_kernel = False
+        t_e = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        ein, _ = model.prefill(prompts, P + gen)
+        model.use_flash_kernel = True
+        t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        route = logits_agree(torch, out["logits"], ein)
+        del ein
+        # the cache: decode_step after prefill(S - 1) against prefill(S)
+        _, cache = model.prefill(prompts[:, :-1], P)
+        dec, cache = model.decode_step(cache, prompts[:, -1:])
+        decode = logits_agree(torch, dec, out["logits"])
+        _, full = model.prefill(prompts, P)
+        kv = cache_agree(torch, cache, full, P - 1)
+        del cache, full
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        arch=cfg.name, batch=B, prompt=P, gen=gen, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_heads_padded,
+                                    cfg.n_kv_heads_padded],
+        d_head=cfg.d_head, vocab=cfg.vocab, dtype=str(cfg.dtype),
+        params=n_params, init_s=init_s, prefill_ms=1e3 * out["prefill_s"],
+        decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        prefill_ms_k3_route=t_k, prefill_ms_einsum_route=t_e,
+        k3_launches=launches, max_memory_allocated=peak,
+        logits_finite=finite, k3_vs_einsum=route, decode_vs_prefill=decode,
+        cache_vs_prefill=kv,
+        sample=tokens[0].tolist())
+    emit("model", **result)
+    require(finite, "non-finite logits")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches == cfg.n_layers,
+            f"K3 launched {launches} times in one prefill, want "
+            f"{cfg.n_layers}")
+    require(route["ok"], f"K3 route != einsum route: {route}")
+    require(decode["ok"], f"decode_step != prefill: {decode}")
+    require(kv["ok"], f"decode_step's cache != prefill's: {kv}")
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+# --------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -381,50 +621,10 @@ def run_main(torch, cfg):
                              "ms_per_round": 1e3 * loop / max(len(rounds), 1)}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--clients", type=int, default=1_000_000)
-    ap.add_argument("--until-step", type=int, default=200)
-    args = ap.parse_args(argv)
-
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke: run from the root of a checkout (no "
-              "src/repro_torch here)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-
-    from repro_torch.backend import get_backend
+def run_scheduler(torch, cuda_bk, args):
+    """The 1M-client main path on ``cuda`` (counts from zero, driven once,
+    read right after), then on NumPy; returns K1/K2's launches."""
     from repro_torch.kernels import counter_hash as ch
-
-    smi = nvidia_smi()
-    t = time.perf_counter()
-    ch.load_library()
-    build_s = time.perf_counter() - t
-    log = ch.library_path().with_suffix(".log")
-    emit("env", nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), build_s=build_s,
-         ptxas=[ln for ln in log.read_text().splitlines()
-                if "registers" in ln or "spill" in ln] if log.exists()
-         else None)
-
-    host = get_backend("numpy")
-    cuda_bk = get_backend()
-    require(cuda_bk.device == torch.device("cuda:0"), "default backend device")
-    require(get_backend("torch") is cuda_bk, "torch is not the cuda backend")
-
-    kern = check_kernels(torch, cuda_bk, host)
-
-    t = time.perf_counter()
-    check_ops(torch, cuda_bk, host)
-    emit("ops", backend=cuda_bk.name, bit_equal=True,
-         s=time.perf_counter() - t)
-
-    # the main path: counts from zero, driven once, read right after
     cfg = main_path_config(args.clients, args.until_step, "cuda")
     cuda_bk.reset_dispatch_counts()
     cuda_bk.window_shapes.clear()
@@ -452,16 +652,82 @@ def main(argv=None) -> int:
             "total energy differs")
     require(launches["piece_window"] > 0 and launches["forecast_z"] > 0,
             f"a kernel never launched on the main path: {launches}")
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--clients", type=int, default=1_000_000)
+    ap.add_argument("--until-step", type=int, default=200)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases: not in {PHASES}: {phases}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout (no "
+              "src/repro_torch here)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.backend import get_backend
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    libs = _build.build(*_build.all_sources())
+    build_s = time.perf_counter() - t
+    ptxas = {}
+    for so in libs:
+        log = so.with_suffix(".log")
+        ptxas[so.name] = [ln for ln in log.read_text().splitlines()
+                          if "registers" in ln or "spill" in ln
+                          or "Compiling" in ln] if log.exists() else None
+    emit("env", nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
+    # float32 products in full float32 on the card, as in the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    host = get_backend("numpy")
+    cuda_bk = get_backend()
+    require(cuda_bk.device == torch.device("cuda:0"), "default backend device")
+    require(get_backend("torch") is cuda_bk, "torch is not the cuda backend")
+
+    if "kernels" in phases:
+        kern = check_kernels(torch, cuda_bk, host)
+    if "ops" in phases:
+        t = time.perf_counter()
+        check_ops(torch, cuda_bk, host)
+        emit("ops", backend=cuda_bk.name, bit_equal=True,
+             s=time.perf_counter() - t)
+    if "main_path" in phases:
+        launches = run_scheduler(torch, cuda_bk, args)
+    if "k3" in phases:
+        attn = check_flash_attention(torch)
+    if "model" in phases:
+        model = run_model(torch)
+    if set(phases) != set(PHASES):
+        return 0
+    kern["flash_attention"] = attn["torch.bfloat16"]
+    launches["flash_attention"] = model["k3_launches"]
 
     kernels = []
-    for name in ("piece_window", "forecast_z"):
+    for name in ("piece_window", "forecast_z", "flash_attention"):
         m = kern[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": K1_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None})
+            "bound_by": m["bound_by"], "library_ms": m.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,48 @@
+"""Architecture registry of the port: the dense decoder-only archs.
+
+Copies of the reference's configs (``repro/configs``) with torch dtypes.
+The reference's other architectures need model families the port has
+not reached yet; asking for one raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+from importlib import import_module
+
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig
+
+# arch id -> module name
+ARCHS = {
+    "granite-3-2b": "granite_3_2b",
+    "llama3.2-3b": "llama3_2_3b",
+    "smollm-360m": "smollm_360m",
+    "stablelm-3b": "stablelm_3b",
+}
+
+# the reference's other archs -> their family (transformer.NOT_PORTED
+# names the ROADMAP item that ports each)
+NOT_PORTED = {
+    "rwkv6-1.6b": "ssm",
+    "mixtral-8x22b": "moe",
+    "kimi-k2-1t-a32b": "moe",
+    "hymba-1.5b": "hybrid",
+    "llava-next-34b": "vlm",
+    "seamless-m4t-large-v2": "encdec",
+}
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch in NOT_PORTED:
+        family = NOT_PORTED[arch]
+        raise NotImplementedError(
+            f"{arch} is not ported yet: the {family} family; see ROADMAP.md, "
+            f"modules still to port, {transformer.NOT_PORTED[family]}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown architecture {arch!r}; known: {sorted(ARCHS)}")
+    mod = import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    return mod.reduced_config() if reduced else mod.config()
+
+
+def all_archs():
+    return list(ARCHS)

@@ -23,27 +23,18 @@ float32 multiply and add is its own eager op, so nothing is contracted
 into an FMA.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
-the source in the package, into ``build/repro_torch_kernels/`` at the
-repository root, and loaded with ``ctypes`` (a plain C interface: no
-PyTorch headers, so the build takes seconds).
+the source in the package, and loaded with ``ctypes`` (:mod:`._build`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "counter_hash.cu"
-BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
-             / "repro_torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import _build
+
+_SRC = _build.CSRC / "counter_hash.cu"
 
 _U64_MOD = 1 << 64
 # np.float32(np.sqrt(12.0)) as an exact Python float
@@ -129,44 +120,12 @@ def forecast_z_plain(fold, rows, now, std) -> torch.Tensor:
 _LIB = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or in "
-                       "/usr/local/cuda/bin: the CUDA kernels cannot be built")
-
-
-def library_path() -> Path:
-    """Where the shared library of the current source is (to be) built;
-    keyed by the source's hash, so an edited source builds anew."""
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"counter_hash_{tag}.so"
-
-
 def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library. The
-    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    it as ``.log``."""
+    """Build (once per source version) and load the kernel library."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SRC}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _build.load(_SRC)
     vp, i64c, u64c = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
     lib.piece_window_launch.argtypes = [vp, vp, vp, vp, i64c, i64c, i64c, u64c,
                                         i64c, ctypes.c_float, vp]

@@ -1,0 +1,140 @@
+"""K3: flash attention (causal / sliding-window / non-causal), GQA-aware.
+
+A kernel written by hand in CUDA C++ (``csrc/flash_attention.cu``),
+beside a plain PyTorch version of the same function in this module. It
+replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention`` and computes ``softmax(q·kᵀ·scale + mask)·v``:
+
+* q [B, H, S, dh]; k, v [B, KV, Sk, dh]; query head ``h`` reads kv head
+  ``h // (H // KV)``;
+* queries are aligned to the end of the keys (``q_offset = Sk - S``);
+  causal keeps ``kpos <= qpos``, a window ``w > 0`` also
+  ``kpos > qpos - w``; masked scores are the finite ``NEG_INF``;
+* scores, the running max and denominator (floored at 1e-30) and the
+  accumulator are float32; the output is in q's dtype (bf16 or f32).
+
+The wrapper takes tensors: on CPU tensors it runs
+:func:`flash_attention_plain`, on CUDA tensors it launches the kernel or
+raises — there is no fallback between the two. ``flash_attention.launches``
+counts the kernel's launches. The kernel takes any strides with a
+contiguous last dim, so ``[B, S, H, dh]`` activations pass as transposed
+views without a copy; unlike the reference's launcher it takes a ragged S
+and Sk (no block multiple).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+_SRC = _build.CSRC / "flash_attention.cu"
+NEG_INF = -1e30
+HEAD_DIMS = (64, 80, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _keep(S: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """[S, Sk] bool: which keys each query may see."""
+    qpos = torch.arange(S, device=device)[:, None] + (Sk - S)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    if not causal:
+        return torch.ones((S, Sk), dtype=torch.bool, device=device)
+    ok = kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          scale=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention`: expand the kv
+    heads, then float32 scores, mask, softmax and output."""
+    H, dh = q.shape[1], q.shape[3]
+    S, Sk = q.shape[2], k.shape[2]
+    g = H // k.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) * scale
+    s = torch.where(_keep(S, Sk, causal, window, q.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vv).to(q.dtype)
+
+
+_LIB = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = _build.load(_SRC)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_launch.argtypes = (
+        [vp, vp, vp, vp] + [i32] * 7 + [i64] * 12
+        + [i32, i32, ctypes.c_float, vp])
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    scale=None) -> torch.Tensor:
+    """q: [B, H, S, dh]; k, v: [B, KV, Sk, dh] with H % KV == 0.
+
+    Returns [B, H, S, dh] in q's dtype. CPU tensors run
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel, which
+    takes float32 (on the CUDA cores) or bfloat16 (on the tensor cores,
+    16-byte aligned), dh in {64, 80, 128}, and Sk >= S when causal."""
+    B, H, S, dh = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if k.shape != (B, KV, Sk, dh) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, scale)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
+                         "float32 or all bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"the head dim of {name} must be contiguous")
+        # the bf16 kernel moves tiles in 16-byte vectors
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"bfloat16 {name} must be 16-byte aligned with "
+                             "strides that are multiples of 8")
+    if S < 1 or Sk < 1 or (causal and Sk < S):
+        raise ValueError(f"S {S}, Sk {Sk}: want both >= 1 and Sk >= S when "
+                         "causal")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty((B, H, S, dh), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, H, KV, S, Sk, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(bool(causal)), int(window), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
+                           f"({msg})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

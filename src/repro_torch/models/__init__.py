@@ -1,0 +1,8 @@
+"""The port's model stack: the dense decoder-only family, with prefill
+attention on the hand-written kernel K3."""
+from .api import SHAPES, build_model, shape_for_long_context
+from .common import ModelConfig, cross_entropy_loss, rmsnorm
+from .transformer import DecoderLM
+
+__all__ = ["ModelConfig", "cross_entropy_loss", "rmsnorm", "SHAPES",
+           "build_model", "shape_for_long_context", "DecoderLM"]

@@ -1,0 +1,185 @@
+"""Grouped-query attention with RoPE, full / sliding-window masks, KV cache.
+
+A copy of ``repro/models/attention.py`` in PyTorch. Three entry points
+per layer:
+  * ``attend_train``  — causal self-attention over a full sequence, by the
+    einsum chain or (``use_flash_kernel=True``) through K3
+    (:mod:`repro_torch.kernels.flash_attention`), the same function.
+  * ``attend_decode`` — one new token against a KV cache (ring buffer for
+    sliding-window configs), in plain torch ops as in the reference.
+  * ``init_cache``    — allocate the cache for a decode shape.
+
+The reference's cross attention (``kv_x``), its non-causal and
+window-override arguments and explicit positions serve only families
+the port has not reached (the encoder-decoder's cross attention and
+local-attention encoder), and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+from .common import ModelConfig, apply_rope, dense_init, head_mask
+
+NEG_INF = -1e30
+
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
+    return {
+        "wq": dense_init(gen, d, (d, H, dh), cfg.param_dtype),
+        "wk": dense_init(gen, d, (d, KV, dh), cfg.param_dtype),
+        "wv": dense_init(gen, d, (d, KV, dh), cfg.param_dtype),
+        "wo": dense_init(gen, H * dh, (H, dh, d), cfg.param_dtype),
+    }
+
+
+def _repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _causal_mask(sq, sk, q_offset, window, device=None):
+    """[sq, sk] additive mask. window<=0 -> full causal."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = kpos <= qpos
+    if window and window > 0:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _masked_heads(out, cfg: ModelConfig):
+    hm = head_mask(cfg, out.device)
+    if hm is None:
+        return out
+    return out * hm[None, None, :, None].to(out.dtype)
+
+
+def attend_train(params, x, cfg: ModelConfig, use_flash_kernel=False):
+    """x: [B, S, d]. Causal self-attention (a sliding window for ``swa``
+    configs); returns [B, S, d].
+
+    ``use_flash_kernel`` routes the softmax(QKᵀ)V contraction through K3
+    instead of the einsum chain — the same function."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    w = cfg.window if cfg.attn_variant == "swa" else 0
+
+    if use_flash_kernel:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=w)
+        out = _masked_heads(out.transpose(1, 2), cfg)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+    k = _repeat_kv(k, H // KV)
+    v = _repeat_kv(v, H // KV)
+    # the reference divides the x.dtype scores by a float32 sqrt(dh), which
+    # promotes them to float32
+    scores = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(dh)
+    scores = scores + _causal_mask(S, S, 0, w, x.device)[None, None]
+    p = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", p, v)
+    out = _masked_heads(out, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # [B, C, KV, dh]  (C = cache length or window)
+    v: torch.Tensor
+    length: torch.Tensor  # [] int32 — number of valid tokens seen so far
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+               device=None) -> KVCache:
+    KV, dh = cfg.n_kv_heads_padded, cfg.d_head
+    C = min(cache_len, cfg.window) if cfg.attn_variant == "swa" else cache_len
+    store = cfg.cache_dtype or dtype
+    return KVCache(
+        k=torch.zeros((batch, C, KV, dh), dtype=store, device=device),
+        v=torch.zeros((batch, C, KV, dh), dtype=store, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _write_slot(buf, slot, new):
+    """``buf[:, slot] = new`` in place. A one-byte cache (float8) is written
+    through its bytes: torch has no ``index_copy_`` for float8."""
+    new = new.to(buf.dtype)
+    if buf.element_size() == 1:
+        buf, new = buf.view(torch.uint8), new.view(torch.uint8)
+    buf.index_copy_(1, slot, new)
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` of two 3-d tensors as float32, accumulated in float32.
+    On the card a bf16 product takes bf16 operands and returns float32;
+    torch has no such product on the CPU, where the operands are upcast."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def attend_decode(params, x, cache: KVCache, cfg: ModelConfig):
+    """x: [B, 1, d]; one-step decode against the cache. Returns (out, cache).
+
+    The new token's K/V are written into ``cache.k``/``cache.v`` in place
+    (the reference returns updated copies); the returned cache holds the
+    same tensors and ``length + 1``. The slot and the valid-slot mask are
+    computed on the device from ``cache.length``, so a step never waits
+    for the host."""
+    B = x.shape[0]
+    H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
+    C = cache.k.shape[1]
+    pos = cache.length  # scalar position of the new token
+
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    positions = pos.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+
+    slot = (pos % C).reshape(1).long()  # ring buffer; % is a no-op when full
+    k, v = cache.k, cache.v
+    _write_slot(k, slot, k_new)
+    _write_slot(v, slot, v_new)
+
+    # GQA-aware decode attention: K/V stay at their KV heads (no repeat);
+    # query groups contract against them directly, one batch row at a time,
+    # so that each product reads the cache through a strided view (a
+    # batched product over (b, kv) would copy the cache). Both products
+    # accumulate and return float32, as the reference's
+    # preferred_element_type does, without a float32 copy of the cache.
+    G = H // KV
+    qg = q.reshape(B, KV, G, dh)
+    k_read = k.to(x.dtype) if cfg.cache_dtype is not None else k
+    v_read = v.to(x.dtype) if cfg.cache_dtype is not None else v
+    kt = k_read.permute(0, 2, 3, 1)  # [B, KV, dh, C]
+    vt = v_read.permute(0, 2, 1, 3)  # [B, KV, C, dh]
+    scores = torch.stack([_bmm_f32(qg[b], kt[b]) for b in range(B)])
+    scores = scores / math.sqrt(dh)
+    # mask out slots that have never been written
+    valid = torch.arange(C, device=x.device) <= torch.clamp(pos, max=C - 1)
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.stack([_bmm_f32(p[b], vt[b]) for b in range(B)])
+    out = out.reshape(B, 1, H, dh).to(x.dtype)
+    out = _masked_heads(out, cfg)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, KVCache(k=k, v=v, length=pos + 1)

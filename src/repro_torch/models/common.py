@@ -1,0 +1,225 @@
+"""Common building blocks of the PyTorch model stack.
+
+A copy of ``repro/models/common.py`` with torch dtypes and tensors in place
+of jnp ones. The layers are plain functions of tensors; the parameters of
+a model live in its ``nn.Module`` (:mod:`.transformer`), with the
+reference's shapes, so that its weights carry across as a plain copy.
+
+The reference's sharding constraints (``maybe_shard``, ``BATCH_AXES``)
+have no counterpart on one card and are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. One instance per assigned architecture."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+
+    # attention variant: 'full' or 'swa' (sliding window)
+    attn_variant: str = "full"
+    window: int = 4096
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+
+    # KV-cache storage dtype for decode: None -> activation dtype;
+    # torch.float8_e4m3fn halves cache bytes
+    cache_dtype: Any = None
+
+    # MoE dispatch: 'grouped' or 'flat' (see the reference's moe.py)
+    moe_dispatch: str = "grouped"
+
+    # SSM (rwkv6 / mamba branch)
+    ssm_state: int = 0
+
+    # hybrid: parallel attention and Mamba heads
+    hybrid: bool = False
+
+    # enc-dec
+    encoder_layers: int = 0  # >0 -> encoder-decoder model
+    encoder_window: int = 0  # local attention window for the (audio) encoder
+
+    # vlm / audio frontend stub: number of embedding positions provided
+    # directly as dense vectors instead of token ids
+    n_frontend_embeds: int = 0
+
+    # physical head counts (logical heads keep the exact numbers above;
+    # padding heads are masked to zero contribution)
+    n_heads_padded: int = 0
+    n_kv_heads_padded: int = 0
+
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.float32       # activation dtype
+    param_dtype: Any = torch.float32
+    tie_embeddings: bool = False
+
+    # citation for the source model card / paper
+    source: str = ""
+
+    # physical vocab rows (0 -> auto: vocab rounded up to a multiple of 64
+    # when not already divisible by 16; padded columns are masked)
+    vocab_padded: int = 0
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
+        if self.vocab_padded == 0:
+            vp = self.vocab if self.vocab % 16 == 0 else -(-self.vocab // 64) * 64
+            object.__setattr__(self, "vocab_padded", vp)
+        if self.n_heads_padded == 0:
+            object.__setattr__(self, "n_heads_padded", self.n_heads)
+        if self.n_kv_heads_padded == 0:
+            object.__setattr__(self, "n_kv_heads_padded", self.n_kv_heads)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Approximate parameter count (for 6ND model-flops accounting)."""
+        d, v = self.d_model, self.vocab
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d
+        per_layer = 0
+        if self.family != "ssm":
+            H, KV, dh = self.n_heads_padded, self.n_kv_heads_padded, self.d_head
+            per_layer += d * H * dh + 2 * d * KV * dh + H * dh * d
+        if self.family == "ssm":
+            # rwkv6: r,k,v,g,o projections + decay lora + channel mix
+            per_layer += 5 * d * d + 3 * d * self.d_ff
+        elif self.hybrid:
+            per_layer += 4 * d * d  # mamba branch in/out/gate/dt
+            per_layer += 3 * d * self.d_ff
+        if self.n_experts > 0:
+            per_layer += d * self.n_experts  # router
+            per_layer += 3 * self.n_experts * d * self.moe_d_ff
+            per_layer += 3 * self.n_shared_experts * d * self.moe_d_ff
+        elif self.family != "ssm":
+            per_layer += 3 * d * self.d_ff
+        per_layer += 2 * d  # norms
+        n += self.n_layers * per_layer
+        if self.encoder_layers:
+            enc_layer = 4 * d * d + 3 * d * self.d_ff + 2 * d
+            n += self.encoder_layers * enc_layer
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        expert_p = 3 * self.n_experts * self.d_model * self.moe_d_ff * self.n_layers
+        active_e = 3 * (self.top_k + self.n_shared_experts) * self.d_model * self.moe_d_ff * self.n_layers
+        return full - expert_p + active_e
+
+
+# ---------------------------------------------------------------------------
+# initializers (seeded by an explicit generator; the numbers differ from
+# jax.random's for the same seed, so parity tests carry weights across with
+# repro_torch.models.convert instead)
+
+
+def _normal(gen: torch.Generator, shape, scale, dtype):
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return (scale * x).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in, shape, dtype):
+    """Normal fan-in init, scale 1/sqrt(d_in)."""
+    return _normal(gen, shape, 1.0 / math.sqrt(d_in), dtype)
+
+
+def embed_init(gen: torch.Generator, vocab, d, dtype):
+    return _normal(gen, (vocab, d), 0.02, dtype)
+
+
+# ---------------------------------------------------------------------------
+# primitive layers
+
+
+def rmsnorm(x, gamma, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def swiglu(x, w1, w3, w2):
+    """SwiGLU MLP: silu(x@w1) * (x@w3) @ w2."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def rope_freqs(d_head: int, theta: float):
+    """Rotary frequencies in float64 NumPy, as the reference computes them."""
+    return 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
+
+
+def apply_rope(x, positions, theta):
+    """x: [..., S, H, dh]; positions: [..., S] integer. Split-half rotation."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(dh, theta).astype(np.float32),
+                            device=x.device)
+    ang = positions[..., None].float() * freqs  # [..., S, dh/2]
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def vocab_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
+    """Static additive mask (-1e30 on padded vocab columns), or None."""
+    if cfg.vocab_padded == cfg.vocab:
+        return None
+    m = torch.zeros((cfg.vocab_padded,), dtype=torch.float32, device=device)
+    m[cfg.vocab:] = -1e30
+    return m
+
+
+def head_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
+    """Static 0/1 mask zeroing the padded attention heads, or None.
+
+    Padded heads keep the reference's physical head counts; masking their
+    outputs keeps the math identical to the logical architecture.
+    """
+    if cfg.n_heads_padded == cfg.n_heads:
+        return None
+    m = torch.zeros((cfg.n_heads_padded,), dtype=torch.float32, device=device)
+    m[: cfg.n_heads] = 1.0
+    return m
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token-level cross entropy. logits [..., V] cast to float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,0 +1,64 @@
+"""Carry a reference model's configuration and weights into the port.
+
+Neither function imports jax: the reference's dtypes are mapped by name
+(``np.dtype(x).name``), and its parameter tree comes in as NumPy arrays
+(``jax.device_get`` of ``DecoderLM.init``'s output, or any tree of the
+same layout). A bfloat16 array (the ``ml_dtypes`` type NumPy holds it
+in) crosses by its 16-bit pattern, so every bit is kept.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .common import ModelConfig
+
+_DTYPE_FIELDS = ("dtype", "param_dtype", "cache_dtype")
+
+
+def torch_dtype(x) -> torch.dtype:
+    """The torch dtype of the same name as NumPy/jnp dtype ``x``."""
+    return getattr(torch, np.dtype(x).name)
+
+
+def model_config_from_reference(ref_cfg) -> ModelConfig:
+    """The port's ``ModelConfig`` with every field of ``ref_cfg`` (a
+    reference ``repro.models.ModelConfig``), dtypes mapped by name."""
+    kw = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)}
+    for name in _DTYPE_FIELDS:
+        if kw[name] is not None:
+            kw[name] = torch_dtype(kw[name])
+    return ModelConfig(**kw)
+
+
+def to_tensor(a) -> torch.Tensor:
+    """A NumPy array as a tensor with the same bits (bfloat16 included).
+    A read-only array (as ``np.asarray`` of a jax array is) is copied."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_reference(tree) -> dict:
+    """The port's ``DecoderLM`` state dict from the reference's dense
+    ``DecoderLM.init`` tree: ``embed``, stacked ``blocks.{ln1, ln2,
+    attn.{wq,wk,wv,wo}, ffn.{w1,w3,w2}}`` [L, ...], ``final_norm`` and
+    (untied) ``lm_head``."""
+    sd = {"embed": to_tensor(tree["embed"]),
+          "final_norm": to_tensor(tree["final_norm"])}
+    if "lm_head" in tree:
+        sd["lm_head"] = to_tensor(tree["lm_head"])
+    blocks = tree["blocks"]
+    L = np.asarray(blocks["ln1"]).shape[0]
+    for i in range(L):
+        for name in ("ln1", "ln2"):
+            sd[f"blocks.{i}.{name}"] = to_tensor(np.asarray(blocks[name])[i])
+        for group in ("attn", "ffn"):
+            for name, a in blocks[group].items():
+                sd[f"blocks.{i}.{group}.{name}"] = to_tensor(np.asarray(a)[i])
+    return sd

@@ -1,0 +1,72 @@
+"""The port's LLM inference demo (``repro_torch.launch.inference_demo``) on
+the CPU: its CLI with ``--device cpu`` on reduced smollm-360m, its default
+device (the card) refused on a host without CUDA, and its prefill + greedy
+decode against the JAX package's demo loop on the same weights: the same
+greedy tokens, and the prefill logits within atol = rtol = 1e-5 (float32;
+the two sides differ only in summation order).
+"""
+import jax
+import jax.experimental
+
+# this jax names the x64 context manager jax.enable_x64; the reference
+# kernels import it from jax.experimental. Set here so this file does not
+# depend on collection order.
+jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import build_model as ref_build_model
+from repro_torch.launch import inference_demo as demo
+from repro_torch.models import build_model
+from repro_torch.models.convert import (model_config_from_reference,
+                                        params_from_reference)
+
+
+def test_cli_runs_on_cpu(capsys):
+    demo.main(["--arch", "smollm-360m", "--reduced", "--batch", "3",
+               "--prompt-len", "20", "--gen", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("prefill 3×20 in ")
+    assert lines[1].startswith("decoded 4 steps × 3 seqs in ")
+    assert lines[1].endswith("tok/s)")
+    assert lines[2].startswith("sample: [")
+    sample = [int(t) for t in lines[2][len("sample: ["):-1].split()]
+    assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        demo.main(["--arch", "smollm-360m", "--reduced"])
+
+
+def test_generate_matches_reference_demo_loop():
+    B, P, gen = 2, 24, 6
+    ref_cfg = ref_get_config("smollm-360m", reduced=True)
+    ref_model = ref_build_model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(0).integers(0, ref_cfg.vocab, (B, P))
+
+    # the reference demo's loop (repro/launch/inference_demo.py)
+    logits, cache = ref_model.prefill(ref_params, jnp.asarray(prompts), P + gen)
+    ref_logits = np.asarray(logits)
+    tok = jnp.argmax(logits[:, -1], axis=-1)[:, None]
+    want = [np.asarray(tok)]
+    for _ in range(gen - 1):
+        logits, cache = ref_model.decode_step(ref_params, cache, tok)
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None]
+        want.append(np.asarray(tok))
+    want = np.concatenate(want, axis=1)
+
+    model = build_model(model_config_from_reference(ref_cfg))
+    model.load_state_dict(params_from_reference(
+        jax.tree_util.tree_map(np.asarray, ref_params)))
+    with torch.inference_mode():
+        out = demo.generate(model, torch.from_numpy(prompts), gen)
+    np.testing.assert_allclose(out["logits"].numpy(), ref_logits,
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(out["tokens"].numpy(), want)

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's LLM inference, on one GPU.
+
+    python3 tools/profile_torch_inference.py [--arch llama3.2-3b]
+        [--batch 4] [--prompt-len 2048] [--gen 16]
+
+Loads the model as the inference demo does (random weights from a seed,
+on ``cuda:0``), warms up, then traces one prefill and, apart, the greedy
+decode steps after it under ``torch.profiler`` (device activity only).
+For each part: wall time, the device's busy time (the sum of kernel and
+copy times), its idle share of the wall time, K3's share of the busy
+time, and the kernels that took the most device time. Prints one JSON
+object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def device_summary(tp, wall_s: float, top: int = 12) -> dict:
+    dev = [e for e in tp.key_averages()
+           if getattr(e, "self_device_time_total", 0) > 0]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    k3_us = sum(e.self_device_time_total for e in dev
+                if "flash_attention" in e.key)
+    ranked = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": 1e3 * wall_s, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "k3_ms": k3_us / 1e3, "k3_share_of_busy": k3_us / max(busy_us, 1),
+            "top_device": [[e.key[:90], e.self_device_time_total / 1e3,
+                            e.count] for e in ranked]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--gen", type=int, default=16)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    from chip_smoke import nvidia_smi
+    from repro_torch.launch import inference_demo as demo
+
+    dev = torch.device("cuda:0")
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    cache_len = args.prompt_len + args.gen
+    with torch.inference_mode():
+        cfg, model = demo.load_model(args.arch, False, 0, dev)
+        prompts = demo.make_prompts(cfg, args.batch, args.prompt_len, 0, dev)
+        demo.generate(model, prompts, 2)  # warm-up
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as tp:
+            t = time.perf_counter()
+            logits, cache = model.prefill(prompts, cache_len)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+        with torch.profiler.profile(activities=act) as td:
+            t = time.perf_counter()
+            demo.greedy_decode(model, logits, cache, args.gen)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t
+    print(json.dumps({
+        "card": nvidia_smi(), "arch": cfg.name, "batch": args.batch,
+        "prompt_len": args.prompt_len, "gen": args.gen,
+        "prefill": device_summary(tp, prefill_s),
+        "decode": {**device_summary(td, decode_s),
+                   "steps": args.gen - 1,
+                   "tok_per_s": (args.gen - 1) * args.batch / decode_s},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
