@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs six phases, each printing
+source, all started together) and then runs eight phases, each printing
 JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -51,6 +51,23 @@ JSON lines:
    other side's maximum; and the K/V cache that ``decode_step`` leaves
    against the one ``prefill(S)`` builds, within ``CACHE_TOL`` at the
    slot the step wrote and at the slots before it.
+7. ``kernel`` for K4 ``rwkv_scan`` — against its plain PyTorch version on
+   the card, element by element within ``K4_TOL`` (below), for the output
+   and the final state, with inputs made as the model makes them (w =
+   exp(-exp(logit)), logit around -0.5 ± 0.6): at the rwkv6-1.6b prefill
+   shape (B 4, S 2048, H 32, dh 64), at a ragged S 2047 and at S 1, and at
+   dh 32 and 16 with small B and H. At the full shape: K4 and plain ms over
+   CUDA events, and the bound.
+8. ``rwkv`` — rwkv6-1.6b at full width in bf16 on ``cuda:0`` through
+   ``build_model`` and the inference demo's functions: batch 4, prompt
+   2048, 16 greedy tokens. K4's count is set to 0 just before this run and
+   read just after (one launch per prefill layer: 24). Then, on the same
+   weights: the last-position logits of the K4 route against the plain
+   route (the per-token recurrence), and ``decode_step`` after
+   ``prefill(S - 1)`` against ``prefill(S)``, each within
+   ``RWKV_LOGIT_TOL`` (as in phase 6); and every state tensor that the
+   decode step leaves (``S``, ``shift``, ``shift_cm``, per layer) against
+   prefill(S)'s, within ``RWKV_STATE_TOL``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -58,13 +75,14 @@ exits non-zero before the last line. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
-``main_path`` (4), ``k3`` (5) and ``model`` (6), after ``env``, and
-then stops without the closing lines: ``--phases k3`` is the quick check
-of a new K3 build.
+``main_path`` (4), ``k3`` (5), ``model`` (6), ``k4`` (7) and ``rwkv``
+(8), after ``env``, and then stops without the closing lines: ``--phases
+k3`` or ``--phases k4`` is the quick check of a new K3 or K4 build.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -80,10 +98,12 @@ FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 SOURCES = {"piece_window": "src/repro_torch/csrc/counter_hash.cu",
            "forecast_z": "src/repro_torch/csrc/counter_hash.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu"}
 REPLACES = {"piece_window": "src/repro/kernels/counter_hash.py:102",
             "forecast_z": "src/repro/kernels/counter_hash.py:138",
-            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:80",
+            "rwkv_scan": "src/repro/kernels/rwkv_scan.py:74"}
 # K3 against its plain version, element by element: |out - want| <= atol +
 # rtol * |want|. Both compute in float32 and differ by summation order
 # only (K3 carries bf16 P as two bf16 parts); a bf16 output then differs by
@@ -101,7 +121,23 @@ LOGIT_TOL = 0.04
 # slot left unwritten reads 1 (PERF.md, PR 12).
 CACHE_TOL = 0.25
 LLAMA = dict(arch="llama3.2-3b", batch=4, prompt=2048, gen=16)
-PHASES = ("kernels", "ops", "main_path", "k3", "model")
+# K4 against its plain version, element by element, for the output and the
+# final state: |got - want| <= atol + rtol * |want|. Both run the same
+# float32 recurrence; they differ only in summation order and fused
+# multiply-adds. Each output sums 64 terms of up to ~100 in size, so the
+# plain version alone is ~1.5e-5 off a float64 scan at 512 steps: atol 1e-4.
+K4_TOL = (1e-4, 1e-4)
+# rwkv6-1.6b, relative to the largest value as LOGIT_TOL: decode_step
+# against prefill(S), its logits within RWKV_LOGIT_TOL and each state tensor
+# per layer within RWKV_STATE_TOL; the K4 route against the plain route,
+# logits within RWKV_ROUTE_TOL in bf16, and logits and every state tensor
+# within RWKV_F32_TOL in float32 on the same weights (PERF.md, PR 13).
+RWKV_LOGIT_TOL = 0.04
+RWKV_STATE_TOL = 0.1
+RWKV_ROUTE_TOL = 0.5
+RWKV_F32_TOL = 1e-3
+RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt=2048, gen=16)
+PHASES = ("kernels", "ops", "main_path", "k3", "model", "k4", "rwkv")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -459,14 +495,14 @@ def check_flash_attention(torch):
 # phase 6: llama3.2-3b inference
 
 
-def logits_agree(torch, a, b):
+def logits_agree(torch, a, b, rel_tol=LOGIT_TOL):
     """max |a - b|, that over max |b|, and the greedy gap: how far below
     b's largest logit b puts a's greedy token (or a puts b's), at most
-    over the rows. Both must be within LOGIT_TOL * max |b|."""
+    over the rows. Both must be within rel_tol * max |b|."""
     a, b = a.float()[:, -1], b.float()[:, -1]
     diff = float((a - b).abs().max())
     scale = float(b.abs().max())
-    tol = LOGIT_TOL * scale
+    tol = rel_tol * scale
     ia, ib = a.argmax(-1), b.argmax(-1)
     gap = torch.maximum(b.max(-1).values - b.gather(-1, ia[:, None])[:, 0],
                         a.max(-1).values - a.gather(-1, ib[:, None])[:, 0])
@@ -507,7 +543,7 @@ def run_model(torch):
         cfg, model = demo.load_model(LLAMA["arch"], False, 0, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t
-        require(model.use_flash_kernel, "the demo's model is not on K3")
+        require(model.use_kernels, "the demo's model is not on K3")
         prompts = demo.make_prompts(cfg, B, P, 0, dev)
         demo.generate(model, prompts[:, :256], 2)       # warm-up
 
@@ -521,10 +557,10 @@ def run_model(torch):
         finite = bool(torch.isfinite(out["logits"]).all())
 
         # the same weights on the einsum route
-        model.use_flash_kernel = False
+        model.use_kernels = False
         t_e = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
         ein, _ = model.prefill(prompts, P + gen)
-        model.use_flash_kernel = True
+        model.use_kernels = True
         t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
         route = logits_agree(torch, out["logits"], ein)
         del ein
@@ -558,6 +594,193 @@ def run_model(torch):
     require(route["ok"], f"K3 route != einsum route: {route}")
     require(decode["ok"], f"decode_step != prefill: {decode}")
     require(kv["ok"], f"decode_step's cache != prefill's: {kv}")
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 7: K4 rwkv scan
+
+
+def scan_case(torch, gen, B, S, H, dh):
+    """r, k, v, w [B, S, H, dh] and u [H, dh] in float32, as the model makes
+    them: unit-scale projections, w = exp(-exp(logit)) with logit around
+    -0.5 +- 0.6, u at the fan-in scale of its init."""
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (randn(B, S, H, dh) for _ in range(3))
+    w = torch.exp(-torch.exp(-0.5 + 0.6 * randn(B, S, H, dh)))
+    return r, k, v, w, randn(H, dh) / dh ** 0.5
+
+
+def check_rwkv_scan(torch):
+    from repro_torch.kernels import rwkv_scan as k4
+
+    gen = torch.Generator(torch.device("cuda:0")).manual_seed(4)
+    atol, rtol = K4_TOL
+    cases = [  # B, S, H, dh
+        ("rwkv6-1.6b prefill", 4, 2048, 32, 64),
+        ("ragged S 2047", 4, 2047, 32, 64),
+        ("S 1", 4, 1, 32, 64),
+        ("dh 32", 2, 300, 4, 32),
+        ("dh 16", 2, 77, 3, 16),
+    ]
+    full = None
+    for name, B, S, H, dh in cases:
+        args = scan_case(torch, gen, B, S, H, dh)
+        n0 = k4.rwkv_scan.launches
+        out, state = k4.rwkv_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        require(k4.rwkv_scan.launches == n0 + 1, "K4 did not count")
+        want, want_state = k4.rwkv_scan_plain(*args)
+        line = dict(name="rwkv_scan", case=name, B=B, S=S, H=H, dh=dh,
+                    atol=atol, rtol=rtol)
+        ratio = 0.0
+        for part, got, ref in (("out", out, want), ("state", state,
+                                                    want_state)):
+            diff = (got - ref).abs()
+            r_ = float((diff / (atol + rtol * ref.abs())).max())
+            line.update({f"max_abs_err_{part}": float(diff.max()),
+                         f"err_over_limit_{part}": r_,
+                         f"rms_{part}": float(ref.pow(2).mean().sqrt())})
+            ratio = max(ratio, r_)
+        line["max_abs_err"] = max(line["max_abs_err_out"],
+                                  line["max_abs_err_state"])
+        if full is None:
+            # each input read once, the output and the final state written
+            # once; about 6 dh^2 operations per token and stream
+            nbytes = (5 * args[0].numel() + args[4].numel()
+                      + state.numel()) * 4
+            flops = 6 * B * S * H * dh * dh
+            op_ms = 1e3 * flops / FP32_FLOPS
+            byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            line.update(
+                ms=cuda_ms(torch, lambda: k4.rwkv_scan(
+                    *args, return_state=True), 10),
+                plain_ms=cuda_ms(torch, lambda: k4.rwkv_scan_plain(*args), 3,
+                                 warmup=1),
+                library_ms=None, flops=flops, bytes=nbytes,
+                bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes")
+            full = line
+        emit("kernel", **line)
+        require(ratio <= 1.0, f"K4 != plain: {name}, max_abs_err "
+                f"{line['max_abs_err']}, {ratio} x the limit")
+        del args, out, state, want, want_state
+        torch.cuda.empty_cache()
+    return full
+
+
+# --------------------------------------------------------------------------
+# phase 8: rwkv6-1.6b inference
+
+
+def both_routes(torch, model, prompts, cache_len):
+    """prefill on the plain route, then on the K4 route: ((logits, state)
+    of each) and the host ms of each."""
+    model.use_kernels = False
+    t_p = host_ms(torch, lambda: model.prefill(prompts, cache_len), 1)
+    plain = model.prefill(prompts, cache_len)
+    model.use_kernels = True
+    t_k = host_ms(torch, lambda: model.prefill(prompts, cache_len), 1)
+    return plain, model.prefill(prompts, cache_len), t_p, t_k
+
+
+def state_agree(torch, a, b, rel_tol):
+    """Each tensor of RWKVState ``a`` against ``b`` ([L, ...] stacked), layer
+    by layer: max |a - b| over max |b|; the largest over the layers must be
+    within ``rel_tol`` (None: reported only)."""
+    out = {}
+    for name in ("S", "shift", "shift_cm"):
+        x, y = getattr(a, name).float(), getattr(b, name).float()
+        per_layer = [float((x[i] - y[i]).abs().max() / y[i].abs().max())
+                     for i in range(x.shape[0])]
+        out[name] = {"max": max(per_layer), "per_layer": per_layer}
+    out["ok"] = rel_tol is None or all(out[n]["max"] <= rel_tol
+                                       for n in ("S", "shift", "shift_cm"))
+    return out
+
+
+def run_rwkv(torch):
+    from repro_torch.kernels import rwkv_scan as k4
+    from repro_torch.launch import inference_demo as demo
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda:0")
+    B, P, gen = RWKV["batch"], RWKV["prompt"], RWKV["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(RWKV["arch"], False, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(model.use_kernels, "the demo's model is not on K4")
+        prompts = demo.make_prompts(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :256], 2)       # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        k4.rwkv_scan.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen)
+        launches = k4.rwkv_scan.launches
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = bool(torch.isfinite(out["logits"]).all())
+
+        # the same weights on the plain route (the per-token recurrence)
+        (plain, plain_st), (kern, kern_st), t_p, t_k = both_routes(
+            torch, model, prompts, P + gen)
+        route = logits_agree(torch, kern, plain, RWKV_ROUTE_TOL)
+        route_state = state_agree(torch, kern_st, plain_st, None)
+        del plain, plain_st, kern, kern_st
+        # the state: decode_step after prefill(S - 1) against prefill(S)
+        _, state = model.prefill(prompts[:, :-1], P)
+        dec, state = model.decode_step(state, prompts[:, -1:])
+        decode = logits_agree(torch, dec, out["logits"], RWKV_LOGIT_TOL)
+        _, full = model.prefill(prompts, P)
+        st = state_agree(torch, state, full, RWKV_STATE_TOL)
+        del state, full
+        # the routes again in float32, on the same weights
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+        m32 = build_model(cfg32, device=dev)
+        m32.load_state_dict({k: v.float()
+                             for k, v in model.state_dict().items()})
+        (plain, plain_st), (kern, kern_st), t_p32, t_k32 = both_routes(
+            torch, m32, prompts, P + gen)
+        route32 = logits_agree(torch, kern, plain, RWKV_F32_TOL)
+        route32_state = state_agree(torch, kern_st, plain_st, RWKV_F32_TOL)
+        del m32, plain, plain_st, kern, kern_st
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        arch=cfg.name, batch=B, prompt=P, gen=gen, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, d_head=cfg.d_head,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=str(cfg.dtype),
+        params=n_params, init_s=init_s, prefill_ms=1e3 * out["prefill_s"],
+        decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        prefill_ms_k4_route=t_k, prefill_ms_plain_route=t_p,
+        k4_launches=launches, max_memory_allocated=peak,
+        logits_finite=finite, k4_vs_plain=route,
+        k4_vs_plain_state=route_state, decode_vs_prefill=decode,
+        state_vs_prefill=st, f32_prefill_ms_k4_route=t_k32,
+        f32_prefill_ms_plain_route=t_p32, f32_k4_vs_plain=route32,
+        f32_k4_vs_plain_state=route32_state, sample=tokens[0].tolist())
+    emit("rwkv", **result)
+    require(finite, "non-finite logits")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches == cfg.n_layers,
+            f"K4 launched {launches} times in one prefill, want "
+            f"{cfg.n_layers}")
+    require(route["ok"], f"K4 route != plain route: {route}")
+    require(decode["ok"], f"decode_step != prefill: {decode}")
+    require(st["ok"], f"decode_step's state != prefill's: {st}")
+    require(route32["ok"] and route32_state["ok"],
+            f"K4 route != plain route in float32: {route32}, "
+            f"{route32_state}")
     del model
     torch.cuda.empty_cache()
     return result
@@ -714,13 +937,20 @@ def main(argv=None) -> int:
         attn = check_flash_attention(torch)
     if "model" in phases:
         model = run_model(torch)
+    if "k4" in phases:
+        scan = check_rwkv_scan(torch)
+    if "rwkv" in phases:
+        rwkv = run_rwkv(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn["torch.bfloat16"]
     launches["flash_attention"] = model["k3_launches"]
+    kern["rwkv_scan"] = scan
+    launches["rwkv_scan"] = rwkv["k4_launches"]
 
     kernels = []
-    for name in ("piece_window", "forecast_z", "flash_attention"):
+    for name in ("piece_window", "forecast_z", "flash_attention",
+                 "rwkv_scan"):
         m = kern[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense decoder-only archs.
+"""Architecture registry of the port: the dense decoder-only archs and
+rwkv6-1.6b (ssm).
 
 Copies of the reference's configs (``repro/configs``) with torch dtypes.
 The reference's other architectures need model families the port has
@@ -16,6 +17,7 @@ from repro_torch.models.common import ModelConfig
 ARCHS = {
     "granite-3-2b": "granite_3_2b",
     "llama3.2-3b": "llama3_2_3b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
     "smollm-360m": "smollm_360m",
     "stablelm-3b": "stablelm_3b",
 }
@@ -23,7 +25,6 @@ ARCHS = {
 # the reference's other archs -> their family (transformer.NOT_PORTED
 # names the ROADMAP item that ports each)
 NOT_PORTED = {
-    "rwkv6-1.6b": "ssm",
     "mixtral-8x22b": "moe",
     "kimi-k2-1t-a32b": "moe",
     "hymba-1.5b": "hybrid",

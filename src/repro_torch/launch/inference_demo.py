@@ -8,13 +8,17 @@ so the CPU runs only when asked for):
     PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
         --arch llama3.2-3b --batch 4 --prompt-len 2048 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
+        --arch rwkv6-1.6b --batch 4 --prompt-len 2048 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
         --arch smollm-360m --reduced --device cpu
 
 The weights are initialised on the device from
 ``torch.Generator(device).manual_seed(seed)``, the prompts from
-``np.random.default_rng(seed)``. Prefill attention runs through K3 (the
-hand-written flash-attention kernel); decode is plain torch ops, as in
-the reference. Everything runs under ``torch.inference_mode()``.
+``np.random.default_rng(seed)``. Prefill runs on the hand-written kernels:
+attention through K3 (dense archs), the RWKV6 scan through K4
+(rwkv6-1.6b, whose prefill ignores the cache length, as the reference's
+does); decode is plain torch ops, as in the reference. Everything runs
+under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -42,10 +46,10 @@ def _sync(device: torch.device):
 
 
 def load_model(arch: str, reduced: bool, seed: int, device: torch.device,
-               use_flash_kernel: bool = True):
+               use_kernels: bool = True):
     """(cfg, model) with the weights made on ``device`` from ``seed``."""
     cfg = get_config(arch, reduced=reduced)
-    model = build_model(cfg, use_flash_kernel=use_flash_kernel, device=device)
+    model = build_model(cfg, use_kernels=use_kernels, device=device)
     model.init(torch.Generator(device).manual_seed(seed))
     return cfg, model
 

@@ -1,4 +1,4 @@
-"""Unified model API + input-shape catalogue (the dense slice).
+"""Unified model API + input-shape catalogue (the dense and ssm families).
 
 ``build_model(cfg)`` returns a :class:`DecoderLM` exposing
     init(generator) -> the model, weights filled
@@ -39,9 +39,12 @@ def shape_for_long_context(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, attn_variant="swa", window=8192)
 
 
-def build_model(cfg: ModelConfig, use_flash_kernel: bool = True,
+def build_model(cfg: ModelConfig, use_kernels: bool = True,
                 device=None) -> DecoderLM:
     """The model of ``cfg`` with its weights allocated on ``device``
-    (uninitialised: call ``init`` or ``load_state_dict``). Raises
-    ``NotImplementedError`` for a family the port has not reached."""
-    return DecoderLM(cfg, use_flash_kernel=use_flash_kernel, device=device)
+    (uninitialised: call ``init`` or ``load_state_dict``). With
+    ``use_kernels`` (the default) prefill runs on the hand-written kernels
+    (K3 attention, K4 rwkv scan); ``False`` is the reference's route.
+    Raises ``NotImplementedError`` for a family the port has not
+    reached."""
+    return DecoderLM(cfg, use_kernels=use_kernels, device=device)

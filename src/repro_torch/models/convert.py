@@ -45,10 +45,13 @@ def to_tensor(a) -> torch.Tensor:
 
 
 def params_from_reference(tree) -> dict:
-    """The port's ``DecoderLM`` state dict from the reference's dense
-    ``DecoderLM.init`` tree: ``embed``, stacked ``blocks.{ln1, ln2,
-    attn.{wq,wk,wv,wo}, ffn.{w1,w3,w2}}`` [L, ...], ``final_norm`` and
-    (untied) ``lm_head``."""
+    """The port's ``DecoderLM`` state dict from the reference's
+    ``DecoderLM.init`` tree: ``embed``, stacked ``blocks`` [L, ...],
+    ``final_norm`` and (untied) ``lm_head``. Each block carries ``ln1`` and
+    ``ln2`` and its groups as they are: ``attn.{wq,wk,wv,wo}`` and
+    ``ffn.{w1,w3,w2}`` (dense), or ``tm.{mu, shift_lora_a, shift_lora_b,
+    wr, wk, wv, wg, wo, w0, w_lora_a, w_lora_b, u, ln_out}`` and
+    ``cm.{mu_k, wk, wv}`` (ssm)."""
     sd = {"embed": to_tensor(tree["embed"]),
           "final_norm": to_tensor(tree["final_norm"])}
     if "lm_head" in tree:
@@ -56,9 +59,11 @@ def params_from_reference(tree) -> dict:
     blocks = tree["blocks"]
     L = np.asarray(blocks["ln1"]).shape[0]
     for i in range(L):
-        for name in ("ln1", "ln2"):
-            sd[f"blocks.{i}.{name}"] = to_tensor(np.asarray(blocks[name])[i])
-        for group in ("attn", "ffn"):
-            for name, a in blocks[group].items():
-                sd[f"blocks.{i}.{group}.{name}"] = to_tensor(np.asarray(a)[i])
+        for key, val in blocks.items():
+            if isinstance(val, dict):  # a group of the block
+                for name, a in val.items():
+                    sd[f"blocks.{i}.{key}.{name}"] = to_tensor(
+                        np.asarray(a)[i])
+            else:
+                sd[f"blocks.{i}.{key}"] = to_tensor(np.asarray(val)[i])
     return sd

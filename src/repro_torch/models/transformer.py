@@ -1,17 +1,19 @@
-"""Decoder-only transformer assembly: the dense family.
+"""Decoder-only transformer assembly: the dense and ssm (rwkv6) families.
 
-A copy of the dense part of ``repro/models/transformer.py`` in PyTorch:
-pre-norm residual blocks of GQA attention and a SwiGLU FFN. The model is
-an ``nn.Module`` that holds its weights in the reference's shapes
-(``wq`` [d, H, dh], ``wo`` [H, dh, d], ``w1`` [d, f], …), one block per
-layer, so a reference parameter tree carries across as a plain copy
-(:mod:`.convert`). The layers are a Python loop where the reference
-scans.
+A copy of the dense and ssm parts of ``repro/models/transformer.py`` in
+PyTorch: pre-norm residual blocks of GQA attention and a SwiGLU FFN
+(dense), or of RWKV6 time mix and channel mix (ssm, attention-free). The
+model is an ``nn.Module`` that holds its weights in the reference's shapes
+(``wq`` [d, H, dh], ``wo`` [H, dh, d], ``w1`` [d, f], ``tm.mu`` [5, d], …),
+one block per layer, so a reference parameter tree carries across as a
+plain copy (:mod:`.convert`). The layers are a Python loop where the
+reference scans.
 
-``DecoderLM(cfg, use_flash_kernel=True)`` runs prefill attention through
-K3; ``use_flash_kernel=False`` is the reference's einsum route. Both
-compute the same function. Families other than dense raise
-``NotImplementedError``.
+``DecoderLM(cfg, use_kernels=True)`` runs the sequence mixing of every
+full-sequence layer through the hand-written kernels: prefill attention
+through K3, the RWKV6 scan through K4. ``use_kernels=False`` is the
+reference's route (einsum attention, the per-token recurrence). Both
+compute the same function. Other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .common import (ModelConfig, cross_entropy_loss, dense_init, embed_init,
                      rmsnorm, swiglu, vocab_mask)
 
 # families the port has not reached -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "ssm": "item 1 (the rwkv6-1.6b path on K4 rwkv_scan)",
     "moe": "item 2 (the MoE family on K5 moe_gemm)",
     "hybrid": "item 5 (the hybrid, vlm and encoder-decoder families)",
     "vlm": "item 5 (the hybrid, vlm and encoder-decoder families)",
@@ -33,9 +35,9 @@ NOT_PORTED = {
 }
 
 
-def check_dense(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a plain dense
-    decoder-only model."""
+def check_ported(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` unless ``cfg`` is a plain dense or an
+    ssm (rwkv6) decoder-only model."""
     family = cfg.family
     if cfg.hybrid:
         family = "hybrid"
@@ -45,7 +47,7 @@ def check_dense(cfg: ModelConfig):
         family = "encdec"
     elif cfg.n_frontend_embeds and family == "dense":
         family = "vlm"
-    if family != "dense":
+    if family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {family} family is not ported yet; see "
             f"ROADMAP.md, modules still to port, "
@@ -67,9 +69,14 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     ones = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": attn.init_attn_params(gen, cfg),
-            "ffn": init_ffn_params(gen, cfg)}
+    p = {"ln1": ones, "ln2": ones.clone()}
+    if cfg.family == "ssm":
+        p["tm"] = ssm_mod.init_rwkv_params(gen, cfg)
+        p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
+        return p
+    p["attn"] = attn.init_attn_params(gen, cfg)
+    p["ffn"] = init_ffn_params(gen, cfg)
+    return p
 
 
 def _empty(shape, dtype, device):
@@ -96,17 +103,55 @@ class Block(nn.Module):
             "w2": _empty((f, d), dt, device)})
 
 
+class RWKVBlock(nn.Module):
+    """One rwkv6 block's weights: ``ln1``, ``ln2``, the time mix
+    ``tm.{mu, shift_lora_a, shift_lora_b, wr, wk, wv, wg, wo, w0,
+    w_lora_a, w_lora_b, u, ln_out}`` and the channel mix ``cm.{mu_k, wk,
+    wv}``, in the reference's shapes."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+        H, dh = ssm_mod._heads(cfg)
+        r = ssm_mod.LORA_DIM
+        self.ln1 = _empty((d,), dt, device)
+        self.ln2 = _empty((d,), dt, device)
+        self.tm = nn.ParameterDict({
+            "mu": _empty((5, d), dt, device),
+            "shift_lora_a": _empty((d, r), dt, device),
+            "shift_lora_b": _empty((r, 5, d), dt, device),
+            **{n: _empty((d, d), dt, device)
+               for n in ("wr", "wk", "wv", "wg", "wo")},
+            "w0": _empty((d,), dt, device),
+            "w_lora_a": _empty((d, r), dt, device),
+            "w_lora_b": _empty((r, d), dt, device),
+            "u": _empty((H, dh), dt, device),
+            "ln_out": _empty((d,), dt, device)})
+        self.cm = nn.ParameterDict({
+            "mu_k": _empty((d,), dt, device), "wk": _empty((d, f), dt, device),
+            "wv": _empty((f, d), dt, device)})
+
+
 # ---------------------------------------------------------------------------
 # block forward (training / prefill path)
 
 
-def block_train(p: Block, x, cfg: ModelConfig, return_kv=False,
-                use_flash_kernel=False):
+def block_train(p, x, cfg: ModelConfig, return_kv=False, use_kernels=False):
     """One residual block over the full sequence. Returns (x, aux, kv)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     kv = None
-    y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_flash_kernel)
+    if cfg.family == "ssm":
+        # the "kv" of an rwkv block is its state after the last token
+        y, S_final = ssm_mod.rwkv_time_mix_scan(p.tm, h, cfg, use_kernels)
+        x = x + y
+        h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
+        if return_kv:
+            kv = ssm_mod.RWKVState(shift=h[:, -1], shift_cm=h2[:, -1],
+                                   S=S_final)
+        y = ssm_mod.rwkv_channel_mix(p.cm, h2, ssm_mod.token_shift(h2))
+        return x + y, aux, kv
+    y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_kernels)
     if return_kv:
         # re-derive K/V for the cache, as the reference does
         kv = _project_kv(p.attn, h, cfg)
@@ -131,9 +176,16 @@ def _project_kv(ap, x, cfg: ModelConfig):
 # block decode (one token)
 
 
-def block_decode(p: Block, x, cache: attn.KVCache, cfg: ModelConfig):
-    """x: [B,1,d]; cache is the layer's KVCache (updated in place)."""
+def block_decode(p, x, cache, cfg: ModelConfig):
+    """x: [B,1,d]; cache is the layer's KVCache (updated in place) or, for
+    ssm, its RWKVState (left as it was; the new state is returned)."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    if cfg.family == "ssm":
+        y, st = ssm_mod.rwkv_time_mix_decode(p.tm, h, cache, cfg)
+        x = x + y
+        h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
+        y2 = ssm_mod.rwkv_channel_mix(p.cm, h2, st.shift_cm[:, None, :])
+        return x + y2, st._replace(shift_cm=h2[:, 0])
     y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
     x = x + y
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
@@ -146,25 +198,29 @@ def block_decode(p: Block, x, cache: attn.KVCache, cfg: ModelConfig):
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM.
+    """Decoder-only LM of the dense or the ssm (rwkv6) family.
 
     The weights are allocated on ``device`` uninitialised; :meth:`init`
     fills them from a ``torch.Generator`` (as the reference's ``init`` does
     from a key), or ``load_state_dict`` takes them from
-    :func:`repro_torch.models.convert.params_from_reference`. The KV cache
-    of :meth:`init_cache`/:meth:`prefill` stacks the layers as the
-    reference's scanned cache does: k, v [L, B, C, KV, dh], length [L].
+    :func:`repro_torch.models.convert.params_from_reference`. The cache of
+    :meth:`init_cache`/:meth:`prefill` stacks the layers as the
+    reference's scanned cache does: a KV cache k, v [L, B, C, KV, dh],
+    length [L] (dense), or an ``RWKVState`` shift, shift_cm [L, B, d],
+    S [L, B, H, dh, dh] float32 (ssm, whose prefill ignores ``cache_len``,
+    as the reference's does). :meth:`decode_step` updates either in place.
     """
 
-    def __init__(self, cfg: ModelConfig, use_flash_kernel: bool = True,
+    def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
                  device=None):
         super().__init__()
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg = cfg
-        self.use_flash_kernel = use_flash_kernel
+        self.use_kernels = use_kernels
         dt, d, vp = cfg.param_dtype, cfg.d_model, cfg.vocab_padded
         self.embed = _empty((vp, d), dt, device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
+        block = RWKVBlock if cfg.family == "ssm" else Block
+        self.blocks = nn.ModuleList(block(cfg, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _empty((d,), dt, device)
         if not cfg.tie_embeddings:
@@ -183,13 +239,12 @@ class DecoderLM(nn.Module):
         self.embed.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                     cfg.param_dtype))
         for blk in self.blocks:
-            p = init_block_params(gen, cfg)
-            blk.ln1.copy_(p["ln1"])
-            blk.ln2.copy_(p["ln2"])
-            for name, t in p["attn"].items():
-                blk.attn[name].copy_(t)
-            for name, t in p["ffn"].items():
-                blk.ffn[name].copy_(t)
+            for key, val in init_block_params(gen, cfg).items():
+                if isinstance(val, dict):  # a group: attn, ffn, tm, cm
+                    for name, t in val.items():
+                        getattr(blk, key)[name].copy_(t)
+                else:
+                    getattr(blk, key).copy_(val)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
@@ -204,7 +259,7 @@ class DecoderLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, a, _ = block_train(blk, x, self.cfg,
-                                  use_flash_kernel=self.use_flash_kernel)
+                                  use_kernels=self.use_kernels)
             aux = aux + a
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
@@ -229,16 +284,28 @@ class DecoderLM(nn.Module):
         return self._logits(x)
 
     # -- decode -----------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int) -> attn.KVCache:
-        one = attn.init_cache(self.cfg, batch, cache_len, self.cfg.dtype,
-                              self.device)
+    def init_cache(self, batch: int, cache_len: int):
+        if self.cfg.family == "ssm":
+            one = ssm_mod.init_rwkv_state(self.cfg, batch, self.device)
+        else:
+            one = attn.init_cache(self.cfg, batch, cache_len, self.cfg.dtype,
+                                  self.device)
         L = self.cfg.n_layers
-        return attn.KVCache(*(t.expand(L, *t.shape).clone() for t in one))
+        return type(one)(*(t.expand(L, *t.shape).clone() for t in one))
 
-    def decode_step(self, cache: attn.KVCache, tokens):
-        """tokens: [B, 1] -> (logits [B,1,V], cache). The cache's k/v are
-        updated in place; the returned cache has ``length + 1``."""
+    def decode_step(self, cache, tokens):
+        """tokens: [B, 1] -> (logits [B,1,V], cache). The cache's tensors
+        are updated in place (a KV cache's k/v, every tensor of an
+        ``RWKVState``); a returned KV cache has ``length + 1``."""
         x = self._embed(tokens)
+        if self.cfg.family == "ssm":
+            for i, blk in enumerate(self.blocks):
+                layer = ssm_mod.RWKVState(*(t[i] for t in cache))
+                x, new = block_decode(blk, x, layer, self.cfg)
+                for old, t in zip(layer, new):
+                    old.copy_(t)
+            x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+            return self._logits(x), cache
         lengths = []
         for i, blk in enumerate(self.blocks):
             layer = attn.KVCache(cache.k[i], cache.v[i], cache.length[i])
@@ -253,10 +320,19 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens)
         S = x.shape[1]
+        if cfg.family == "ssm":
+            states = []
+            for blk in self.blocks:
+                x, _, st = block_train(blk, x, cfg, return_kv=True,
+                                       use_kernels=self.use_kernels)
+                states.append(st)
+            x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+            return self._logits(x[:, -1:]), ssm_mod.RWKVState(
+                *(torch.stack(t) for t in zip(*states)))
         ks, vs = [], []
         for blk in self.blocks:
             x, _, (k, v) = block_train(blk, x, cfg, return_kv=True,
-                                       use_flash_kernel=self.use_flash_kernel)
+                                       use_kernels=self.use_kernels)
             ks.append(k)
             vs.append(v)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)

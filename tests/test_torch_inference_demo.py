@@ -1,5 +1,6 @@
 """The port's LLM inference demo (``repro_torch.launch.inference_demo``) on
-the CPU: its CLI with ``--device cpu`` on reduced smollm-360m, its default
+the CPU: its CLI with ``--device cpu`` on reduced smollm-360m and reduced
+rwkv6-1.6b, its default
 device (the card) refused on a host without CUDA, and its prefill + greedy
 decode against the JAX package's demo loop on the same weights: the same
 greedy tokens, and the prefill logits within atol = rtol = 1e-5 (float32;
@@ -26,14 +27,26 @@ from repro_torch.models.convert import (model_config_from_reference,
                                         params_from_reference)
 
 
-def test_cli_runs_on_cpu(capsys):
-    demo.main(["--arch", "smollm-360m", "--reduced", "--batch", "3",
+def _run_cli(capsys, arch):
+    demo.main(["--arch", arch, "--reduced", "--batch", "3",
                "--prompt-len", "20", "--gen", "5", "--device", "cpu"])
-    lines = capsys.readouterr().out.strip().splitlines()
+    return capsys.readouterr().out.strip().splitlines()
+
+
+def test_cli_runs_on_cpu(capsys):
+    lines = _run_cli(capsys, "smollm-360m")
     assert lines[0].startswith("prefill 3×20 in ")
     assert lines[1].startswith("decoded 4 steps × 3 seqs in ")
     assert lines[1].endswith("tok/s)")
     assert lines[2].startswith("sample: [")
+    sample = [int(t) for t in lines[2][len("sample: ["):-1].split()]
+    assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
+
+
+def test_cli_runs_rwkv_on_cpu(capsys):
+    lines = _run_cli(capsys, "rwkv6-1.6b")
+    assert lines[0].startswith("prefill 3×20 in ")
+    assert lines[1].startswith("decoded 4 steps × 3 seqs in ")
     sample = [int(t) for t in lines[2][len("sample: ["):-1].split()]
     assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
 

@@ -17,7 +17,8 @@ from a seed with NumPy, so both sides compute on the same numbers:
   mask) at the same tolerance;
 * the configs, ``SHAPES`` and ``shape_for_long_context`` field for field,
   the converter (a bfloat16 array crosses bit for bit), and
-  ``NotImplementedError`` for the families the port has not reached.
+  ``NotImplementedError`` for the families the port has not reached (the
+  rwkv6 model has its own file, tests/test_torch_ssm.py).
 """
 import jax
 import jax.experimental
@@ -123,7 +124,7 @@ def test_decoder_matches_reference(arch, variant, flash):
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = build_model(model_config_from_reference(ref_cfg),
-                        use_flash_kernel=flash)
+                        use_kernels=flash)
     model.load_state_dict(params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params)))
     tokens = np.random.default_rng(2).integers(0, ref_cfg.vocab,
@@ -154,7 +155,7 @@ def test_decoder_matches_reference(arch, variant, flash):
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("rwkv6-1.6b", "mixtral-8x22b", "kimi-k2-1t-a32b",
+    for arch in ("mixtral-8x22b", "kimi-k2-1t-a32b",
                  "hymba-1.5b", "llava-next-34b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
@@ -162,7 +163,7 @@ def test_other_families_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(model_config_from_reference(ref_cfg))
     assert sorted(all_archs()) == ["granite-3-2b", "llama3.2-3b",
-                                   "smollm-360m", "stablelm-3b"]
+                                   "rwkv6-1.6b", "smollm-360m", "stablelm-3b"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Run chip_smoke.py's K4 and rwkv checks on copies of the tree, each with
+one planted fault, to show where each check's tolerance sits.
+
+    python3 tools/plant_faults.py [--faults NAME,...]
+
+For each fault it copies ``src/`` and ``chip_smoke.py`` into
+``build/planted/<name>/`` (git-ignored), replaces one line of the copy,
+runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
+touches (the copy builds its own kernels), and prints, as one JSON line
+per run, what the checks read: the kernel lines' errors, the rwkv line's
+route, decode and state checks, and the error that stopped the run. A
+sound tree passes every check; each planted fault must fail one. Needs a
+CUDA device, as chip_smoke.py does.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# name -> (file, the sound line, the faulty line, phases to run)
+FAULTS = {
+    "k4_no_bonus": (
+        "src/repro_torch/csrc/rwkv_scan.cu",
+        "acc[e] += rr[e] * (s[i] + uu[e] * kv);",
+        "acc[e] += rr[e] * s[i];", ("k4", "rwkv")),
+    "k4_decay_after_kv": (
+        "src/repro_torch/csrc/rwkv_scan.cu",
+        "s[i] = ww[e] * s[i] + kv;",
+        "s[i] = ww[e] * (s[i] + kv);", ("k4", "rwkv")),
+    "decode_stale_shift": (
+        "src/repro_torch/models/ssm.py",
+        "return y, state._replace(shift=x[:, 0], S=S_new)",
+        "return y, state._replace(S=S_new)", ("rwkv",)),
+}
+KEEP = ("case", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
+        "err_over_limit_state", "k4_launches", "k4_vs_plain",
+        "decode_vs_prefill", "state_vs_prefill", "f32_k4_vs_plain",
+        "f32_k4_vs_plain_state")
+
+
+def plant(name: str) -> Path:
+    path, sound, faulty, _ = FAULTS[name]
+    dst = ROOT / "build" / "planted" / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / "src", dst / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    text = (dst / path).read_text()
+    if text.count(sound) != 1:
+        raise RuntimeError(f"{name}: the sound line is not once in {path}")
+    (dst / path).write_text(text.replace(sound, faulty))
+    return dst
+
+
+def run(name: str, phase: str) -> dict:
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase],
+                          cwd=plant(name), capture_output=True, text=True,
+                          timeout=900)
+    read = []
+    for line in proc.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        rec = json.loads(line)
+        if rec.get("phase") in ("kernel", "rwkv"):
+            read.append({k: rec[k] for k in KEEP if k in rec})
+    err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
+    return {"fault": name, "phase": phase, "rc": proc.returncode,
+            "read": read, "error": err[0][:400] if err else None}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--faults", default=",".join(FAULTS))
+    args = ap.parse_args(argv)
+    caught = True
+    for name in args.faults.split(","):
+        for phase in FAULTS[name][3]:
+            rec = run(name, phase)
+            print(json.dumps(rec), flush=True)
+            caught = caught and rec["rc"] != 0
+    return 0 if caught else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

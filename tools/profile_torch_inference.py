@@ -3,14 +3,16 @@
 
     python3 tools/profile_torch_inference.py [--arch llama3.2-3b]
         [--batch 4] [--prompt-len 2048] [--gen 16]
+    python3 tools/profile_torch_inference.py --arch rwkv6-1.6b
 
 Loads the model as the inference demo does (random weights from a seed,
 on ``cuda:0``), warms up, then traces one prefill and, apart, the greedy
 decode steps after it under ``torch.profiler`` (device activity only).
 For each part: wall time, the device's busy time (the sum of kernel and
-copy times), its idle share of the wall time, K3's share of the busy
-time, and the kernels that took the most device time. Prints one JSON
-object.
+copy times), its idle share of the wall time, the time and share of the
+busy time of each hand-written kernel (K3 ``flash_attention``, K4
+``rwkv_scan``), and the kernels that took the most device time. Prints
+one JSON object.
 """
 from __future__ import annotations
 
@@ -23,16 +25,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+HAND_KERNELS = ("flash_attention", "rwkv_scan")
+
+
 def device_summary(tp, wall_s: float, top: int = 12) -> dict:
     dev = [e for e in tp.key_averages()
            if getattr(e, "self_device_time_total", 0) > 0]
     busy_us = sum(e.self_device_time_total for e in dev)
-    k3_us = sum(e.self_device_time_total for e in dev
-                if "flash_attention" in e.key)
+    hand = {}
+    for name in HAND_KERNELS:
+        us = sum(e.self_device_time_total for e in dev if name in e.key)
+        hand[name] = {"ms": us / 1e3, "share_of_busy": us / max(busy_us, 1),
+                      "calls": sum(e.count for e in dev if name in e.key)}
     ranked = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
     return {"wall_ms": 1e3 * wall_s, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
-            "k3_ms": k3_us / 1e3, "k3_share_of_busy": k3_us / max(busy_us, 1),
+            "hand_kernels": hand,
             "top_device": [[e.key[:90], e.self_device_time_total / 1e3,
                             e.count] for e in ranked]}
 
