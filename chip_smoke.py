@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs eight phases, each printing
+source, all started together) and then runs ten phases, each printing
 JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -35,7 +35,8 @@ JSON lines:
    at the llama3.2-3b prefill shape (B 4, H 32, KV 8, S = Sk = 2048,
    dh 128, in the [B, S, H, dh] layout the model passes, bf16 and f32),
    GQA 2:1 at dh 64, dh 80 with KV = H, a sliding window of 1024, S < Sk,
-   a ragged S = 1000, non-causal, and three small ragged cases (a
+   a ragged S = 1000, non-causal, the mixtral-8x22b prefill shape (H 48,
+   KV 8, window 4096), and three small ragged cases (a
    non-causal 33 × 77, S = Sk = 1, a window of 16 at S = 70). At the
    llama shape: K3, plain and ``scaled_dot_product_attention`` ms over
    CUDA events, and the bound.
@@ -68,6 +69,33 @@ JSON lines:
    ``RWKV_LOGIT_TOL`` (as in phase 6); and every state tensor that the
    decode step leaves (``S``, ``shift``, ``shift_cm``, per layer) against
    prefill(S)'s, within ``RWKV_STATE_TOL``.
+9. ``kernel`` for K5 ``moe_gemm`` — against its plain version on the card,
+   element by element within ``K5_TOL`` (below): mixtral-8x22b's prefill
+   expert products in bf16 ([8, 2560, 6144]·[8, 6144, 16384] and
+   [8, 2560, 16384]·[8, 16384, 6144]: 32 groups of 256 tokens at capacity
+   80), its decode shapes ([8, 8, 6144]·[8, 6144, 16384] and
+   [8, 8, 16384]·[8, 16384, 6144]), kimi-k2's expert widths with E cut
+   from 384 to 64 ([64, 256, 7168]·[64, 7168, 2048]), the first prefill
+   shape in float32, and a ragged C of 37. Each case: K5,
+   plain and ``torch.bmm`` ms over CUDA events, the bound, and whether K5's
+   output equals ``torch.bmm``'s bit for bit. Every case runs and reports
+   before a failing one stops the phase.
+10. ``moe`` — mixtral-8x22b at full width and 8 of its 56 layers in bf16 on
+   ``cuda:0`` through the inference demo's ``load_model`` and
+   ``generate``: batch 4, prompt 2048, 16 greedy tokens. K3's and K5's
+   counts are set to 0 just before this run and read just after (K5: three
+   launches per layer in the prefill and in each decode step; K3: one per
+   prefill layer). Then, on the same weights: per layer, the MoE layer's
+   K5 route against its einsum route on the layer's own input (routing
+   identical), within ``MOE_ROUTE_TOL``, and, at capacity factor
+   ``n_experts / top_k`` (no token dropped), against a float32 oracle that
+   runs each expert on the tokens routed to it, within ``MOE_ORACLE_TOL``;
+   the router's dropped share at the published capacity factor; at that
+   same no-drop capacity, ``decode_step`` after ``prefill(S - 1)`` against
+   ``prefill(S)`` and its cache (``LOGIT_TOL``, ``CACHE_TOL``: at the
+   published factor the two prefills group, and so drop, differently);
+   and the K5 route against the einsum route, whole model, in float32 on
+   a 2-layer full-width copy of the same weights, within ``MOE_F32_TOL``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -75,9 +103,10 @@ exits non-zero before the last line. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
-``main_path`` (4), ``k3`` (5), ``model`` (6), ``k4`` (7) and ``rwkv``
-(8), after ``env``, and then stops without the closing lines: ``--phases
-k3`` or ``--phases k4`` is the quick check of a new K3 or K4 build.
+``main_path`` (4), ``k3`` (5), ``model`` (6), ``k4`` (7), ``rwkv`` (8),
+``k5`` (9) and ``moe`` (10), after ``env``, and then stops without the
+closing lines: ``--phases k3``, ``k4`` or ``k5`` is the quick check of a
+new K3, K4 or K5 build.
 """
 from __future__ import annotations
 
@@ -99,11 +128,13 @@ BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 SOURCES = {"piece_window": "src/repro_torch/csrc/counter_hash.cu",
            "forecast_z": "src/repro_torch/csrc/counter_hash.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu"}
+           "rwkv_scan": "src/repro_torch/csrc/rwkv_scan.cu",
+           "moe_gemm": "src/repro_torch/csrc/moe_gemm.cu"}
 REPLACES = {"piece_window": "src/repro/kernels/counter_hash.py:102",
             "forecast_z": "src/repro/kernels/counter_hash.py:138",
             "flash_attention": "src/repro/kernels/flash_attention.py:80",
-            "rwkv_scan": "src/repro/kernels/rwkv_scan.py:74"}
+            "rwkv_scan": "src/repro/kernels/rwkv_scan.py:74",
+            "moe_gemm": "src/repro/kernels/moe_gemm.py:41"}
 # K3 against its plain version, element by element: |out - want| <= atol +
 # rtol * |want|. Both compute in float32 and differ by summation order
 # only (K3 carries bf16 P as two bf16 parts); a bf16 output then differs by
@@ -137,8 +168,37 @@ RWKV_STATE_TOL = 0.1
 RWKV_ROUTE_TOL = 0.5
 RWKV_F32_TOL = 1e-3
 RWKV = dict(arch="rwkv6-1.6b", batch=4, prompt=2048, gen=16)
-PHASES = ("kernels", "ops", "main_path", "k3", "model", "k4", "rwkv")
+# K5 against its plain version, element by element: |got - want| <= atol +
+# rtol * |want|. Both accumulate in float32 and differ by summation order
+# only; a bf16 output then differs by at most one rounding step, 2^-7 of
+# |want|. Inputs are unit normal, weights at the fan-in scale (outputs ~1).
+K5_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (1e-4, 1e-2)}
+# mixtral-8x22b, relative to the largest value as LOGIT_TOL: per layer, the
+# MoE layer's K5 route against its einsum route (MOE_ROUTE_TOL) and, with
+# no token dropped, against a float32 per-expert oracle (MOE_ORACLE_TOL);
+# the whole model's logits, K5 route against einsum route, in float32
+# (MOE_F32_TOL). Sound runs read 0.0 (K5 equals torch.bmm bit for bit),
+# <= 0.0096 and 4.8e-6; planted faults 0.12-0.15 (K5 skips its last d
+# tile), 0.118-1.35 (a fault in the MoE layer's dispatch or combine) and
+# 0.76 (K5's float32 loop skips its last 16 of d) (PERF.md, PR 14).
+MOE_ROUTE_TOL = 0.02
+MOE_ORACLE_TOL = 0.05
+MOE_F32_TOL = 1e-3
+MIXTRAL = dict(arch="mixtral-8x22b", n_layers=8, batch=4, prompt=2048,
+               gen=16)
+PHASES = ("kernels", "ops", "main_path", "k3", "model", "k4", "rwkv", "k5",
+          "moe")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
+
+
+def smoke_config(arch):
+    """``arch``'s full-width config at the depth this script runs it: the
+    registry's, cut where its run (LLAMA, RWKV, MIXTRAL) names a depth."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL)}.get(arch, {})
+    return dataclasses.replace(cfg,
+                               n_layers=run.get("n_layers", cfg.n_layers))
 
 
 def emit(phase, **kw):
@@ -436,6 +496,7 @@ def check_flash_attention(torch):
         ("S < Sk", 2, 32, 8, 512, 2048, 128, True, 0),
         ("ragged S", 2, 32, 8, 1000, 1000, 128, True, 0),
         ("non-causal", 2, 16, 8, 1024, 1024, 64, False, 0),
+        ("mixtral-8x22b prefill", 4, 48, 8, 2048, 2048, 128, True, 4096),
         ("non-causal 33 x 77, dh 80", 1, 4, 2, 33, 77, 80, False, 0),
         ("S = Sk = 1", 1, 4, 2, 1, 1, 64, True, 0),
         ("window 16, S 70", 3, 6, 3, 70, 70, 80, True, 16),
@@ -787,6 +848,283 @@ def run_rwkv(torch):
 
 
 # --------------------------------------------------------------------------
+# phase 9: K5 moe_gemm
+
+
+def check_moe_gemm(torch):
+    from repro_torch.kernels import moe_gemm as k5
+
+    gen = torch.Generator(torch.device("cuda:0")).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, E, C, d, f, dtype
+        ("mixtral-8x22b prefill w1/w3", 8, 2560, 6144, 16384, bf16),
+        ("mixtral-8x22b prefill w2", 8, 2560, 16384, 6144, bf16),
+        ("mixtral-8x22b decode w1/w3", 8, 8, 6144, 16384, bf16),
+        ("mixtral-8x22b decode w2", 8, 8, 16384, 6144, bf16),
+        ("kimi-k2 widths, E 64", 64, 256, 7168, 2048, bf16),
+        ("mixtral-8x22b prefill w1/w3 f32", 8, 2560, 6144, 16384, f32),
+        ("ragged C 37", 8, 37, 6144, 1024, bf16),
+    ]
+    first, bad = None, []
+    for name, E, C, d, f, dtype in cases:
+        atol, rtol = K5_TOL[str(dtype)]
+        dev = gen.device
+        x = torch.randn((E, C, d), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((E, d, f), generator=gen, device=dev)
+             / d ** 0.5).to(dtype)
+        n0 = k5.moe_gemm.launches
+        out = k5.moe_gemm(x, w)
+        torch.cuda.synchronize()
+        require(k5.moe_gemm.launches == n0 + 1, "K5 did not count")
+        want = k5.moe_gemm_plain(x, w)
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        ratio = float((diff / (atol + rtol * want.float().abs())).max())
+        del diff
+        lib = torch.bmm(x, w)
+        lib_err = float((lib.float() - want.float()).abs().max())
+        k5_vs_lib = float((out.float() - lib.float()).abs().max())
+        k5_equals_lib = bool(torch.equal(out, lib))
+        del lib
+        flops = 2 * E * C * d * f
+        nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
+        peak = BF16_FLOPS if dtype == bf16 else FP32_FLOPS
+        op_ms = 1e3 * flops / peak
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        iters = 3 if dtype == f32 else 10
+        line = dict(
+            name="moe_gemm", case=name, dtype=str(dtype), E=E, C=C, d=d, f=f,
+            max_abs_err=err, atol=atol, rtol=rtol, err_over_limit=ratio,
+            rms_out=float(want.float().pow(2).mean().sqrt()),
+            ms=cuda_ms(torch, lambda: k5.moe_gemm(x, w), iters),
+            plain_ms=cuda_ms(torch, lambda: k5.moe_gemm_plain(x, w), 3,
+                             warmup=1),
+            library_ms=cuda_ms(torch, lambda: torch.bmm(x, w), iters),
+            library_max_abs_err=lib_err, k5_vs_library_max_abs_err=k5_vs_lib,
+            k5_equals_library=k5_equals_lib, flops=flops, bytes=nbytes,
+            bound_ms=max(op_ms, byte_ms),
+            bound_by="operations" if op_ms >= byte_ms else "bytes")
+        line["tflops"] = flops / line["ms"] / 1e9
+        emit("kernel", **line)
+        if ratio > 1.0:
+            bad.append(f"{name}: max_abs_err {err}, {ratio} x the limit")
+        if first is None:
+            first = line
+        del x, w, out, want
+        torch.cuda.empty_cache()
+    # every case runs and reports before a failure stops the phase
+    require(not bad, f"K5 != plain: {bad}")
+    return first
+
+
+# --------------------------------------------------------------------------
+# phase 10: mixtral-8x22b inference
+
+
+def rel_max(a, b):
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def record_moe_inputs(model, prompts, cache_len):
+    """One prefill with the MoE layer wrapped: each layer's input and aux."""
+    from repro_torch.models import moe as moe_mod
+    seen = []
+    moe_ffn = moe_mod.moe_ffn
+
+    def recording(params, x, cfg, use_kernels=False):
+        y, aux = moe_ffn(params, x, cfg, use_kernels)
+        seen.append((x, aux))
+        return y, aux
+    moe_mod.moe_ffn = recording
+    try:
+        model.prefill(prompts, cache_len)
+    finally:
+        moe_mod.moe_ffn = moe_ffn
+    return seen
+
+
+def moe_oracle(torch, p, x, cfg):
+    """The MoE layer with no capacity, in float32: each expert's SwiGLU on
+    the tokens routed to it (a gather per expert, as a GPU-style dispatch
+    does), weighted by the gates and summed per token. The routing is the
+    model's (``_route`` on the same grouping): the oracle holds the
+    dispatch, the expert products and the combine."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    B, S, d = x.shape
+    T = B * S
+    G = moe_mod._pick_groups(T)
+    _, gate, idx = moe_mod._route(x.reshape(G, T // G, d), p["router"],
+                                  cfg.top_k)
+    gate, idx = gate.reshape(T, -1), idx.reshape(T, -1)
+    xt = x.reshape(T, d).float()
+    y = torch.zeros_like(xt)
+    for e in range(cfg.n_experts):
+        tok, slot = torch.nonzero(idx == e, as_tuple=True)
+        xe = xt[tok]
+        he = F.silu(xe @ p["w1"][e].float()) * (xe @ p["w3"][e].float())
+        y.index_add_(0, tok, (he @ p["w2"][e].float())
+                     * gate[tok, slot, None])
+    return y.reshape(B, S, d)
+
+
+def run_moe(torch):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as k5
+    from repro_torch.launch import inference_demo as demo
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    dev = torch.device("cuda:0")
+    B, P, gen = MIXTRAL["batch"], MIXTRAL["prompt"], MIXTRAL["gen"]
+    cfg = smoke_config(MIXTRAL["arch"])
+    L = cfg.n_layers
+    # no token dropped: every expert can take every token of its group
+    cfg_all = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(cfg, False, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(model.use_kernels, "the demo's model is not on K3/K5")
+        prompts = demo.make_prompts(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :256], 2)       # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        k5.moe_gemm.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen)
+        launches = {"moe_gemm": k5.moe_gemm.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = bool(torch.isfinite(out["logits"]).all())
+
+        # the launches of one prefill and of one decode step apart
+        k5.moe_gemm.launches = fa.flash_attention.launches = 0
+        _, cache = model.prefill(prompts, P + gen)
+        per = {"k5_prefill": k5.moe_gemm.launches,
+               "k3_prefill": fa.flash_attention.launches}
+        k5.moe_gemm.launches = 0
+        model.decode_step(cache, out["tokens"][:, :1])
+        per["k5_decode_step"] = k5.moe_gemm.launches
+        del cache
+
+        # per layer, on the layer's own input: the two routes, and (no
+        # token dropped) the K5 route against the float32 oracle
+        layers = record_moe_inputs(model, prompts, P + gen)
+        per_layer = []
+        for blk, (h, aux) in zip(model.blocks, layers):
+            yk, _ = moe_mod.moe_ffn(blk.moe, h, cfg, use_kernels=True)
+            ye, _ = moe_mod.moe_ffn(blk.moe, h, cfg, use_kernels=False)
+            route = rel_max(yk, ye)
+            del yk, ye
+            ya, aux_all = moe_mod.moe_ffn(blk.moe, h, cfg_all,
+                                          use_kernels=True)
+            oracle = rel_max(ya, moe_oracle(torch, blk.moe, h, cfg))
+            per_layer.append({"route": route, "oracle": oracle,
+                              "dropped": float(aux["dropped"]),
+                              "lb_loss": float(aux["lb_loss"]),
+                              "dropped_no_drop_cf": float(aux_all["dropped"])})
+            del ya
+        del layers
+        torch.cuda.empty_cache()
+
+        # the whole model on the einsum route in bf16: reported (a rounding
+        # flip can change a router's choice after layer 0)
+        model.use_kernels = False
+        t_e = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        ein, _ = model.prefill(prompts, P + gen)
+        model.use_kernels = True
+        t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        route_bf16 = logits_agree(torch, out["logits"], ein, float("inf"))
+        del ein
+
+        # decode_step after prefill(S - 1) against prefill(S), and its
+        # cache, where no token drops (at the published factor prefill(S)
+        # runs 32 groups at C 80, prefill(S - 1) 4 groups at C 640)
+        model.cfg = cfg_all
+        want, full = model.prefill(prompts, P)
+        _, cache = model.prefill(prompts[:, :-1], P)
+        dec, cache = model.decode_step(cache, prompts[:, -1:])
+        decode = logits_agree(torch, dec, want)
+        kv = cache_agree(torch, cache, full, P - 1)
+        model.cfg = cfg
+        del want, full, cache, dec
+        n_params = sum(p.numel() for p in model.parameters())
+
+        # float32: a 2-layer full-width copy of the same weights, then the
+        # bf16 model freed
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+        m32 = build_model(cfg32, device=dev)
+        src = dict(model.named_parameters())
+        for name, p in m32.named_parameters():
+            p.copy_(src[name])
+        del src, model
+        torch.cuda.empty_cache()
+        m32.use_kernels = False
+        t_e32 = host_ms(torch, lambda: m32.prefill(prompts, P + gen), 1)
+        ein32, _ = m32.prefill(prompts, P + gen)
+        m32.use_kernels = True
+        t_k32 = host_ms(torch, lambda: m32.prefill(prompts, P + gen), 1)
+        k32, _ = m32.prefill(prompts, P + gen)
+        route32 = logits_agree(torch, k32, ein32, MOE_F32_TOL)
+        del m32, ein32, k32
+        torch.cuda.empty_cache()
+
+    worst = {k: max(layer[k] for layer in per_layer)
+             for k in ("route", "oracle", "dropped_no_drop_cf")}
+    result = dict(
+        arch=cfg.name, n_layers=L, n_layers_published=56, batch=B, prompt=P,
+        gen=gen, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        d_head=cfg.d_head, window=cfg.window,
+        experts=[cfg.n_experts, cfg.top_k], moe_d_ff=cfg.moe_d_ff,
+        vocab=cfg.vocab, dtype=str(cfg.dtype), params=n_params,
+        init_s=init_s, prefill_ms=1e3 * out["prefill_s"],
+        decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        prefill_ms_k5_route=t_k, prefill_ms_einsum_route=t_e,
+        k5_launches=launches["moe_gemm"],
+        k3_launches=launches["flash_attention"], **per,
+        max_memory_allocated=peak, logits_finite=finite,
+        dropped_share_published_cf=sum(x["dropped"] for x in per_layer) / L,
+        capacity_factor=cfg.capacity_factor,
+        no_drop_capacity_factor=cfg_all.capacity_factor,
+        per_layer=per_layer, worst=worst, route_tol=MOE_ROUTE_TOL,
+        oracle_tol=MOE_ORACLE_TOL, k5_vs_einsum_bf16_model=route_bf16,
+        decode_vs_prefill=decode, cache_vs_prefill=kv,
+        f32_prefill_ms_k5_route=t_k32, f32_prefill_ms_einsum_route=t_e32,
+        f32_k5_vs_einsum=route32, sample=tokens[0].tolist())
+    emit("moe", **result)
+    require(finite, "non-finite logits")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches["moe_gemm"] == 3 * L * gen,
+            f"K5 launched {launches['moe_gemm']} times in one generate, "
+            f"want {3 * L * gen}")
+    require(per["k5_prefill"] == 3 * L and per["k5_decode_step"] == 3 * L,
+            f"K5 launches per prefill / decode step: {per}, want {3 * L}")
+    require(launches["flash_attention"] == L and per["k3_prefill"] == L,
+            f"K3 launches: {launches}, {per}, want {L} per prefill")
+    require(worst["route"] <= MOE_ROUTE_TOL,
+            f"MoE K5 route != einsum route: {worst}")
+    require(worst["oracle"] <= MOE_ORACLE_TOL,
+            f"MoE layer != float32 oracle: {worst}")
+    require(worst["dropped_no_drop_cf"] == 0.0,
+            f"tokens dropped at the no-drop capacity: {worst}")
+    require(decode["ok"], f"decode_step != prefill: {decode}")
+    require(kv["ok"], f"decode_step's cache != prefill's: {kv}")
+    require(route32["ok"], f"K5 route != einsum route in float32: {route32}")
+    return result
+
+
+# --------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -941,16 +1279,22 @@ def main(argv=None) -> int:
         scan = check_rwkv_scan(torch)
     if "rwkv" in phases:
         rwkv = run_rwkv(torch)
+    if "k5" in phases:
+        gemm = check_moe_gemm(torch)
+    if "moe" in phases:
+        moe = run_moe(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn["torch.bfloat16"]
     launches["flash_attention"] = model["k3_launches"]
     kern["rwkv_scan"] = scan
     launches["rwkv_scan"] = rwkv["k4_launches"]
+    kern["moe_gemm"] = gemm
+    launches["moe_gemm"] = moe["k5_launches"]
 
     kernels = []
     for name in ("piece_window", "forecast_z", "flash_attention",
-                 "rwkv_scan"):
+                 "rwkv_scan", "moe_gemm"):
         m = kern[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

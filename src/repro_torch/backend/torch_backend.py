@@ -54,6 +54,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import counter_hash
 from ..kernels.counter_hash import cheap_u01_t, i64, sm64_t, srl
 from .base import MARGIN, _reach_rank
@@ -89,14 +90,9 @@ class TorchBackend(NumpyBackend):
     name = "torch"
 
     def __init__(self, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"backend {self.name!r} runs on cuda:0 and this host has "
-                    f"no CUDA device; to run on the CPU pass an instance, "
-                    f"e.g. {type(self).__name__}(device='cpu')")
-            device = "cuda:0"
-        self.device = torch.device(device)
+        self.device = resolve_device(
+            device, f"to run backend {self.name!r} on the CPU pass an "
+            f"instance, e.g. {type(self).__name__}(device='cpu')")
         self.window_shapes: Counter = Counter()
 
     def __repr__(self):

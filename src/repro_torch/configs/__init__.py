@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense decoder-only archs and
-rwkv6-1.6b (ssm).
+"""Architecture registry of the port: the dense decoder-only archs,
+mixtral-8x22b and kimi-k2-1t-a32b (moe) and rwkv6-1.6b (ssm).
 
 Copies of the reference's configs (``repro/configs``) with torch dtypes.
 The reference's other architectures need model families the port has
@@ -16,7 +16,9 @@ from repro_torch.models.common import ModelConfig
 # arch id -> module name
 ARCHS = {
     "granite-3-2b": "granite_3_2b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llama3.2-3b": "llama3_2_3b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "smollm-360m": "smollm_360m",
     "stablelm-3b": "stablelm_3b",
@@ -25,8 +27,6 @@ ARCHS = {
 # the reference's other archs -> their family (transformer.NOT_PORTED
 # names the ROADMAP item that ports each)
 NOT_PORTED = {
-    "mixtral-8x22b": "moe",
-    "kimi-k2-1t-a32b": "moe",
     "hymba-1.5b": "hybrid",
     "llava-next-34b": "vlm",
     "seamless-m4t-large-v2": "encdec",

@@ -1,0 +1,103 @@
+"""K5: the grouped (per-expert) matrix product of the MoE layer.
+
+A kernel written by hand in CUDA C++ (``csrc/moe_gemm.cu``), beside a
+plain PyTorch version of the same function in this module. It replaces
+the Pallas kernel ``repro/kernels/moe_gemm.py::moe_gemm`` and computes
+``out[e] = x[e] @ w[e]`` for the capacity-packed expert buffer x [E, C, d]
+and the expert weights w [E, d, f], out [E, C, f], with a float32
+accumulator over the whole d loop and the output in x's dtype, as
+``repro/kernels/ref.py::moe_gemm_ref`` does.
+
+The wrapper takes tensors: on CPU tensors it runs :func:`moe_gemm_plain`,
+on CUDA tensors it launches the kernel or raises — there is no fallback
+between the two. ``moe_gemm.launches`` counts the kernel's launches. bf16
+runs on the tensor cores, float32 on the CUDA cores. Unlike the
+reference's launcher it takes any C >= 1 (no block multiple); d and f must
+be multiples of 8 (16-byte rows) on every device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SRC = _build.CSRC / "moe_gemm.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def moe_gemm_plain(x, w):
+    """Plain PyTorch version of :func:`moe_gemm`: both inputs in float32,
+    one batched product, the result cast back to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+_LIB = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = _build.load(_SRC)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.moe_gemm_launch.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
+    lib.moe_gemm_launch.restype = ctypes.c_int
+    lib.moe_gemm_error_string.argtypes = [ctypes.c_int]
+    lib.moe_gemm_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def _check(x, w):
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: want "
+                         "[E, C, d] and [E, d, f]")
+    E, C, d = x.shape
+    if w.shape[0] != E or w.shape[1] != d:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
+                         "share E and d")
+    f = w.shape[2]
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"dtypes {x.dtype}, {w.dtype}: want both float32 "
+                         "or both bfloat16")
+    if w.device != x.device:
+        raise ValueError("x and w must be on one device")
+    if min(E, C) < 1 or d < 8 or f < 8 or d % 8 or f % 8:
+        raise ValueError(f"E {E}, C {C}, d {d}, f {f}: want E, C >= 1 and d, "
+                         "f positive multiples of 8")
+
+
+def moe_gemm(x, w):
+    """x: [E, C, d]; w: [E, d, f] -> [E, C, f] in x's dtype.
+
+    CPU tensors run :func:`moe_gemm_plain`; CUDA tensors launch the kernel,
+    which takes contiguous float32 or bfloat16 inputs (bfloat16 16-byte
+    aligned). Anything else raises ``ValueError``."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return moe_gemm_plain(x, w)
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.moe_gemm_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
+            E, C, d, f, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.moe_gemm_error_string(err).decode()
+        raise RuntimeError(f"moe_gemm launch failed: CUDA error {err} "
+                           f"({msg})")
+    moe_gemm.launches += 1
+    return out
+
+
+moe_gemm.launches = 0

@@ -11,14 +11,19 @@ so the CPU runs only when asked for):
         --arch rwkv6-1.6b --batch 4 --prompt-len 2048 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
         --arch smollm-360m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
+        --arch mixtral-8x22b --reduced --device cpu
 
 The weights are initialised on the device from
 ``torch.Generator(device).manual_seed(seed)``, the prompts from
-``np.random.default_rng(seed)``. Prefill runs on the hand-written kernels:
-attention through K3 (dense archs), the RWKV6 scan through K4
-(rwkv6-1.6b, whose prefill ignores the cache length, as the reference's
-does); decode is plain torch ops, as in the reference. Everything runs
-under ``torch.inference_mode()``.
+``np.random.default_rng(seed)``. The model runs on the hand-written
+kernels: prefill attention through K3 (dense and moe archs), the RWKV6
+scan through K4 (rwkv6-1.6b, whose prefill ignores the cache length, as
+the reference's does), and the expert products of the moe archs through
+K5 in prefill and decode; the rest of decode is plain torch ops, as in
+the reference. Full-width mixtral-8x22b (281 GB) does not fit one card;
+a caller that cuts its depth passes the cut config to :func:`load_model`.
+Everything runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -29,15 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import build_model
-
-
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the demo runs on the card by "
-                           "default; pass --device cpu to run on the CPU")
-    return dev
+from repro_torch.device import resolve_device
+from repro_torch.models import ModelConfig, build_model
 
 
 def _sync(device: torch.device):
@@ -45,10 +43,13 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def load_model(arch: str, reduced: bool, seed: int, device: torch.device,
+def load_model(arch, reduced: bool, seed: int, device: torch.device,
                use_kernels: bool = True):
-    """(cfg, model) with the weights made on ``device`` from ``seed``."""
-    cfg = get_config(arch, reduced=reduced)
+    """(cfg, model) with the weights made on ``device`` from ``seed``.
+    ``arch`` is an arch id of the registry or a ``ModelConfig`` (then
+    ``reduced`` is not read)."""
+    cfg = (arch if isinstance(arch, ModelConfig)
+           else get_config(arch, reduced=reduced))
     model = build_model(cfg, use_kernels=use_kernels, device=device)
     model.init(torch.Generator(device).manual_seed(seed))
     return cfg, model
@@ -102,7 +103,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device,
+                            "pass --device cpu to run on the CPU")
     with torch.inference_mode():
         cfg, model = load_model(args.arch, args.reduced, args.seed, device)
         prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed,

@@ -1,6 +1,7 @@
 """The port's model stack: the dense decoder-only family, with prefill
-attention on the hand-written kernel K3, and the ssm family (rwkv6), with
-its prefill scan on the hand-written kernel K4."""
+attention on the hand-written kernel K3; the moe family, with its expert
+products on the hand-written kernel K5 (and its attention on K3); and the
+ssm family (rwkv6), with its prefill scan on the hand-written kernel K4."""
 from .api import SHAPES, build_model, shape_for_long_context
 from .common import ModelConfig, cross_entropy_loss, rmsnorm
 from .transformer import DecoderLM

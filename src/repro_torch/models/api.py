@@ -1,4 +1,5 @@
-"""Unified model API + input-shape catalogue (the dense and ssm families).
+"""Unified model API + input-shape catalogue (the dense, moe and ssm
+families).
 
 ``build_model(cfg)`` returns a :class:`DecoderLM` exposing
     init(generator) -> the model, weights filled
@@ -42,9 +43,11 @@ def shape_for_long_context(cfg: ModelConfig) -> ModelConfig:
 def build_model(cfg: ModelConfig, use_kernels: bool = True,
                 device=None) -> DecoderLM:
     """The model of ``cfg`` with its weights allocated on ``device``
-    (uninitialised: call ``init`` or ``load_state_dict``). With
-    ``use_kernels`` (the default) prefill runs on the hand-written kernels
-    (K3 attention, K4 rwkv scan); ``False`` is the reference's route.
-    Raises ``NotImplementedError`` for a family the port has not
-    reached."""
+    (uninitialised: call ``init`` or ``load_state_dict``). The device
+    defaults to ``cuda:0`` and raises ``RuntimeError`` on a host without
+    CUDA: the CPU runs only when named (``device="cpu"``). With
+    ``use_kernels`` (the default) the model runs on the hand-written
+    kernels (K3 prefill attention, K4 rwkv scan, K5 expert products in
+    prefill and decode); ``False`` is the reference's route. Raises
+    ``NotImplementedError`` for a family the port has not reached."""
     return DecoderLM(cfg, use_kernels=use_kernels, device=device)

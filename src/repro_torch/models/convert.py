@@ -25,7 +25,9 @@ def torch_dtype(x) -> torch.dtype:
 
 def model_config_from_reference(ref_cfg) -> ModelConfig:
     """The port's ``ModelConfig`` with every field of ``ref_cfg`` (a
-    reference ``repro.models.ModelConfig``), dtypes mapped by name."""
+    reference ``repro.models.ModelConfig``), dtypes mapped by name: the
+    MoE fields (``n_experts``, ``top_k``, ``moe_d_ff``,
+    ``n_shared_experts``, ``capacity_factor``, ``moe_dispatch``) too."""
     kw = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)}
     for name in _DTYPE_FIELDS:
         if kw[name] is not None:
@@ -48,10 +50,12 @@ def params_from_reference(tree) -> dict:
     """The port's ``DecoderLM`` state dict from the reference's
     ``DecoderLM.init`` tree: ``embed``, stacked ``blocks`` [L, ...],
     ``final_norm`` and (untied) ``lm_head``. Each block carries ``ln1`` and
-    ``ln2`` and its groups as they are: ``attn.{wq,wk,wv,wo}`` and
-    ``ffn.{w1,w3,w2}`` (dense), or ``tm.{mu, shift_lora_a, shift_lora_b,
-    wr, wk, wv, wg, wo, w0, w_lora_a, w_lora_b, u, ln_out}`` and
-    ``cm.{mu_k, wk, wv}`` (ssm)."""
+    ``ln2`` and its groups as they are, each array in its own dtype:
+    ``attn.{wq,wk,wv,wo}`` and ``ffn.{w1,w3,w2}`` (dense) or
+    ``moe.{router,w1,w3,w2}`` and, with shared experts,
+    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router stays
+    float32), or ``tm.{mu, shift_lora_a, shift_lora_b, wr, wk, wv, wg, wo,
+    w0, w_lora_a, w_lora_b, u, ln_out}`` and ``cm.{mu_k, wk, wv}`` (ssm)."""
     sd = {"embed": to_tensor(tree["embed"]),
           "final_norm": to_tensor(tree["final_norm"])}
     if "lm_head" in tree:

@@ -1,19 +1,23 @@
-"""Decoder-only transformer assembly: the dense and ssm (rwkv6) families.
+"""Decoder-only transformer assembly: the dense, moe and ssm (rwkv6)
+families.
 
-A copy of the dense and ssm parts of ``repro/models/transformer.py`` in
-PyTorch: pre-norm residual blocks of GQA attention and a SwiGLU FFN
-(dense), or of RWKV6 time mix and channel mix (ssm, attention-free). The
-model is an ``nn.Module`` that holds its weights in the reference's shapes
-(``wq`` [d, H, dh], ``wo`` [H, dh, d], ``w1`` [d, f], ``tm.mu`` [5, d], …),
-one block per layer, so a reference parameter tree carries across as a
-plain copy (:mod:`.convert`). The layers are a Python loop where the
-reference scans.
+A copy of the dense, moe and ssm parts of ``repro/models/transformer.py``
+in PyTorch: pre-norm residual blocks of GQA attention and a SwiGLU FFN
+(dense) or a top-k expert FFN (moe, :mod:`.moe`), or of RWKV6 time mix
+and channel mix (ssm, attention-free). The model is an ``nn.Module`` that
+holds its weights in the reference's shapes (``wq`` [d, H, dh], ``wo``
+[H, dh, d], ``w1`` [d, f], ``moe.w1`` [E, d, f], ``tm.mu`` [5, d], …), one
+block per layer, so a reference parameter tree carries across as a plain
+copy (:mod:`.convert`). The layers are a Python loop where the reference
+scans.
 
-``DecoderLM(cfg, use_kernels=True)`` runs the sequence mixing of every
-full-sequence layer through the hand-written kernels: prefill attention
-through K3, the RWKV6 scan through K4. ``use_kernels=False`` is the
-reference's route (einsum attention, the per-token recurrence). Both
-compute the same function. Other families raise ``NotImplementedError``.
+``DecoderLM(cfg, use_kernels=True)`` runs the hand-written kernels:
+prefill attention through K3, the RWKV6 scan through K4, and the three
+expert products of every MoE layer, in prefill and decode, through K5.
+``use_kernels=False`` is the reference's route (einsum attention, the
+per-token recurrence, the expert einsums). Both compute the same
+function. Other families raise ``NotImplementedError``. The model's
+weights live on ``cuda:0`` unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -21,14 +25,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (ModelConfig, cross_entropy_loss, dense_init, embed_init,
                      rmsnorm, swiglu, vocab_mask)
 
 # families the port has not reached -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "moe": "item 2 (the MoE family on K5 moe_gemm)",
     "hybrid": "item 5 (the hybrid, vlm and encoder-decoder families)",
     "vlm": "item 5 (the hybrid, vlm and encoder-decoder families)",
     "encdec": "item 5 (the hybrid, vlm and encoder-decoder families)",
@@ -36,8 +41,8 @@ NOT_PORTED = {
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a plain dense or an
-    ssm (rwkv6) decoder-only model."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a plain dense, a moe
+    or an ssm (rwkv6) decoder-only model."""
     family = cfg.family
     if cfg.hybrid:
         family = "hybrid"
@@ -47,7 +52,7 @@ def check_ported(cfg: ModelConfig):
         family = "encdec"
     elif cfg.n_frontend_embeds and family == "dense":
         family = "vlm"
-    if family not in ("dense", "ssm"):
+    if family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {family} family is not ported yet; see "
             f"ROADMAP.md, modules still to port, "
@@ -75,7 +80,10 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
         return p
     p["attn"] = attn.init_attn_params(gen, cfg)
-    p["ffn"] = init_ffn_params(gen, cfg)
+    if cfg.n_experts:
+        p["moe"] = moe_mod.init_moe_params(gen, cfg)
+    else:
+        p["ffn"] = init_ffn_params(gen, cfg)
     return p
 
 
@@ -84,8 +92,10 @@ def _empty(shape, dtype, device):
 
 
 class Block(nn.Module):
-    """One dense block's weights: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``,
-    ``ffn.{w1,w3,w2}``."""
+    """One dense or moe block's weights: ``ln1``, ``ln2``,
+    ``attn.{wq,wk,wv,wo}``, and ``ffn.{w1,w3,w2}`` (dense) or
+    ``moe.{router,w1,w3,w2}`` with, given shared experts,
+    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router float32)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -98,9 +108,15 @@ class Block(nn.Module):
             "wk": _empty((d, KV, dh), dt, device),
             "wv": _empty((d, KV, dh), dt, device),
             "wo": _empty((H, dh, d), dt, device)})
-        self.ffn = nn.ParameterDict({
-            "w1": _empty((d, f), dt, device), "w3": _empty((d, f), dt, device),
-            "w2": _empty((f, d), dt, device)})
+        if cfg.n_experts:
+            self.moe = nn.ParameterDict({
+                name: _empty(shape, t, device)
+                for name, (shape, t) in moe_mod.moe_param_shapes(cfg).items()})
+        else:
+            self.ffn = nn.ParameterDict({
+                "w1": _empty((d, f), dt, device),
+                "w3": _empty((d, f), dt, device),
+                "w2": _empty((f, d), dt, device)})
 
 
 class RWKVBlock(nn.Module):
@@ -157,7 +173,11 @@ def block_train(p, x, cfg: ModelConfig, return_kv=False, use_kernels=False):
         kv = _project_kv(p.attn, h, cfg)
     x = x + y
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
-    y = swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
+    if cfg.n_experts:
+        y, moe_aux = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
+        aux = moe_aux["lb_loss"]
+    else:
+        y = swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
     return x + y, aux, kv
 
 
@@ -176,9 +196,10 @@ def _project_kv(ap, x, cfg: ModelConfig):
 # block decode (one token)
 
 
-def block_decode(p, x, cache, cfg: ModelConfig):
+def block_decode(p, x, cache, cfg: ModelConfig, use_kernels=False):
     """x: [B,1,d]; cache is the layer's KVCache (updated in place) or, for
-    ssm, its RWKVState (left as it was; the new state is returned)."""
+    ssm, its RWKVState (left as it was; the new state is returned).
+    ``use_kernels`` sends a moe block's expert products through K5."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
         y, st = ssm_mod.rwkv_time_mix_decode(p.tm, h, cache, cfg)
@@ -189,7 +210,10 @@ def block_decode(p, x, cache, cfg: ModelConfig):
     y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
     x = x + y
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
-    y = swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
+    if cfg.n_experts:
+        y, _ = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
+    else:
+        y = swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
     return x + y, new_cache
 
 
@@ -198,9 +222,11 @@ def block_decode(p, x, cache, cfg: ModelConfig):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense or the ssm (rwkv6) family.
+    """Decoder-only LM of the dense, the moe or the ssm (rwkv6) family.
 
-    The weights are allocated on ``device`` uninitialised; :meth:`init`
+    The weights are allocated on ``device`` uninitialised (``None``:
+    ``cuda:0``, which raises ``RuntimeError`` on a host without CUDA; the
+    CPU runs only when named); :meth:`init`
     fills them from a ``torch.Generator`` (as the reference's ``init`` does
     from a key), or ``load_state_dict`` takes them from
     :func:`repro_torch.models.convert.params_from_reference`. The cache of
@@ -215,6 +241,7 @@ class DecoderLM(nn.Module):
                  device=None):
         super().__init__()
         check_ported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         self.use_kernels = use_kernels
         dt, d, vp = cfg.param_dtype, cfg.d_model, cfg.vocab_padded
@@ -309,7 +336,8 @@ class DecoderLM(nn.Module):
         lengths = []
         for i, blk in enumerate(self.blocks):
             layer = attn.KVCache(cache.k[i], cache.v[i], cache.length[i])
-            x, layer = block_decode(blk, x, layer, self.cfg)
+            x, layer = block_decode(blk, x, layer, self.cfg,
+                                    use_kernels=self.use_kernels)
             lengths.append(layer.length)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x), attn.KVCache(cache.k, cache.v,

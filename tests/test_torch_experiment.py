@@ -144,7 +144,9 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
-        "assert 'repro_torch.backend.cuda_backend' in sys.modules\n"
+        "for m in ('repro_torch.backend.cuda_backend',\n"
+        "          'repro_torch.models.moe', 'repro_torch.kernels.moe_gemm'):\n"
+        "    assert m in sys.modules, m\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

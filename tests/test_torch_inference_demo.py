@@ -1,6 +1,6 @@
 """The port's LLM inference demo (``repro_torch.launch.inference_demo``) on
-the CPU: its CLI with ``--device cpu`` on reduced smollm-360m and reduced
-rwkv6-1.6b, its default
+the CPU: its CLI with ``--device cpu`` on reduced smollm-360m, reduced
+rwkv6-1.6b and reduced mixtral-8x22b, its default
 device (the card) refused on a host without CUDA, and its prefill + greedy
 decode against the JAX package's demo loop on the same weights: the same
 greedy tokens, and the prefill logits within atol = rtol = 1e-5 (float32;
@@ -51,6 +51,14 @@ def test_cli_runs_rwkv_on_cpu(capsys):
     assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
 
 
+def test_cli_runs_mixtral_on_cpu(capsys):
+    lines = _run_cli(capsys, "mixtral-8x22b")
+    assert lines[0].startswith("prefill 3×20 in ")
+    assert lines[1].startswith("decoded 4 steps × 3 seqs in ")
+    sample = [int(t) for t in lines[2][len("sample: ["):-1].split()]
+    assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
+
+
 def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -75,7 +83,7 @@ def test_generate_matches_reference_demo_loop():
         want.append(np.asarray(tok))
     want = np.concatenate(want, axis=1)
 
-    model = build_model(model_config_from_reference(ref_cfg))
+    model = build_model(model_config_from_reference(ref_cfg), device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params)))
     with torch.inference_mode():

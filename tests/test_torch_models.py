@@ -10,15 +10,20 @@ from a seed with NumPy, so both sides compute on the same numbers:
   tests/test_kernel_model_integration.py (atol 3e-5, rtol 3e-4);
 * ``DecoderLM``: ``logits_fn``, ``prefill`` (its logits and every cache
   tensor), then three ``decode_step``s, on the reduced configs of the four
-  dense archs in float32, against the reference's einsum route. Tolerance
+  dense archs and the two moe archs (mixtral-8x22b, kimi-k2-1t-a32b, whose
+  expert products run on K5's route) in float32, against the reference's
+  einsum route. Tolerance
   atol = rtol = 1e-5: the two sides differ only in float32 summation order
   (about 2e-6 on logits of magnitude ~1.4 here), and the cache lengths
   must be equal (a float8 cache too, compared as float32); ``loss`` (with and without a token mask and a vocab
   mask) at the same tolerance;
 * the configs, ``SHAPES`` and ``shape_for_long_context`` field for field,
-  the converter (a bfloat16 array crosses bit for bit), and
-  ``NotImplementedError`` for the families the port has not reached (the
-  rwkv6 model has its own file, tests/test_torch_ssm.py).
+  the converter (a bfloat16 array crosses bit for bit), every parameter's
+  shape and dtype at full width against the reference's (the moe router
+  stays float32 in a bf16 model), the default device (the card, which
+  raises on a host without CUDA), and ``NotImplementedError`` for the
+  families the port has not reached (the rwkv6 model has its own file,
+  tests/test_torch_ssm.py).
 """
 import jax
 import jax.experimental
@@ -45,7 +50,8 @@ from repro_torch.configs import all_archs, get_config
 from repro_torch.models import attention as A
 from repro_torch.models import SHAPES, build_model, shape_for_long_context
 from repro_torch.models.convert import (model_config_from_reference,
-                                        params_from_reference, to_tensor)
+                                        params_from_reference, to_tensor,
+                                        torch_dtype)
 
 MODEL_TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -117,6 +123,9 @@ def _cache_close(ref_cache, cache):
     ("granite-3-2b", "swa", True),    # ring-buffer cache, rolled at prefill
     ("granite-3-2b", "vocab", True),  # vocab mask on the logits
     ("granite-3-2b", "fp8", True),    # float8 cache, written in place
+    ("mixtral-8x22b", None, True),    # moe on K5's route, window 64
+    ("mixtral-8x22b", None, False),   # moe on the einsum route
+    ("kimi-k2-1t-a32b", None, True),  # moe with a shared expert
 ])
 def test_decoder_matches_reference(arch, variant, flash):
     B, S, steps = 2, 32, 3
@@ -124,7 +133,7 @@ def test_decoder_matches_reference(arch, variant, flash):
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = build_model(model_config_from_reference(ref_cfg),
-                        use_kernels=flash)
+                        use_kernels=flash, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params)))
     tokens = np.random.default_rng(2).integers(0, ref_cfg.vocab,
@@ -155,15 +164,52 @@ def test_decoder_matches_reference(arch, variant, flash):
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("mixtral-8x22b", "kimi-k2-1t-a32b",
-                 "hymba-1.5b", "llava-next-34b", "seamless-m4t-large-v2"):
+    for arch in ("hymba-1.5b", "llava-next-34b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
         ref_cfg = ref_get_config(arch, reduced=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(model_config_from_reference(ref_cfg))
-    assert sorted(all_archs()) == ["granite-3-2b", "llama3.2-3b",
+            build_model(model_config_from_reference(ref_cfg), device="cpu")
+    assert sorted(all_archs()) == ["granite-3-2b", "kimi-k2-1t-a32b",
+                                   "llama3.2-3b", "mixtral-8x22b",
                                    "rwkv6-1.6b", "smollm-360m", "stablelm-3b"]
+
+
+def test_model_defaults_to_the_card():
+    """A model built with no device is on ``cuda:0``, and raises where
+    there is none: it never falls back to the host."""
+    cfg = get_config("smollm-360m", reduced=True)
+    if torch.cuda.is_available():
+        assert build_model(cfg).device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b",
+                                  "llama3.2-3b"])
+def test_full_width_parameters_match_reference(arch):
+    """Every parameter of the full-width model, allocated on the meta
+    device, has the reference's shape and dtype (``jax.eval_shape`` of its
+    ``init``: nothing is allocated on either side)."""
+    ref_cfg = ref_get_config(arch)
+    tree = jax.eval_shape(ref_build_model(ref_cfg).init,
+                          jax.random.PRNGKey(0))
+    want = {"embed": tree["embed"], "final_norm": tree["final_norm"],
+            "lm_head": tree["lm_head"]}
+    for key, val in tree["blocks"].items():
+        group = val.items() if isinstance(val, dict) else [("", val)]
+        for name, a in group:
+            for i in range(ref_cfg.n_layers):
+                want[".".join(filter(None, ("blocks", str(i), key, name)))] = (
+                    jax.ShapeDtypeStruct(a.shape[1:], a.dtype))
+    want = {n: (tuple(a.shape), torch_dtype(a.dtype)) for n, a in want.items()}
+    model = build_model(get_config(arch), device="meta")
+    got = {n: (tuple(t.shape), t.dtype) for n, t in model.state_dict().items()}
+    assert got == want
+    if ref_cfg.n_experts:
+        assert got["blocks.0.moe.router"][1] == torch.float32
+        assert got["blocks.0.moe.w1"][1] == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +217,8 @@ def test_other_families_raise_not_implemented():
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "llama3.2-3b",
-                                  "smollm-360m", "stablelm-3b"])
+                                  "smollm-360m", "stablelm-3b",
+                                  "mixtral-8x22b", "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(arch, reduced):
     mine, ref = get_config(arch, reduced=reduced), ref_get_config(arch, reduced)
@@ -189,7 +236,7 @@ def test_loss_matches_reference(arch, masked):
     ref_cfg = _ref_cfg(arch, "vocab" if masked else None)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
-    model = build_model(model_config_from_reference(ref_cfg))
+    model = build_model(model_config_from_reference(ref_cfg), device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params)))
     rng = np.random.default_rng(4)

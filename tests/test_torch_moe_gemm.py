@@ -1,0 +1,125 @@
+"""K5 of the port (``repro_torch.kernels.moe_gemm``) against the reference.
+
+The same inputs, made from a seed with NumPy (standard normal, as the
+reference's tests draw them), go through:
+
+* the JAX package's Pallas kernel ``ops.moe_gemm``, in interpreter mode
+  as its own tests run it (tests/test_kernels.py), at the three shapes of
+  those tests, in float32 and bfloat16, within the reference's
+  tolerances (1e-3 in float32; atol = rtol = 5e-2 in bfloat16);
+* the JAX package's oracle ``ref.moe_gemm_ref``, also at ragged C (37 and
+  1), which the Pallas launcher does not take.
+
+On the CPU the port's wrapper runs its plain version (the tensors lie on
+the CPU); the kernel itself is held to that plain version by the
+``cuda``-marked test, which skips on a host without a CUDA device. Both
+accumulate in float32 and differ only in summation order, so that test is
+tighter: atol 1e-4 + rtol 1e-2 in bfloat16 (one output rounding step,
+2^-7 of the value), 1e-4 in float32, as chip_smoke.py's ``K5_TOL``.
+"""
+import jax
+import jax.experimental
+
+# this jax names the x64 context manager jax.enable_x64; the reference
+# kernels import it from jax.experimental. Set here, before repro.kernels
+# is imported, so this file does not depend on collection order.
+jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref
+from repro_torch.kernels import moe_gemm as k5
+from repro_torch.models.convert import to_tensor
+
+SHAPES = [  # E, C, d, f, bc, bf, bd: the reference's test shapes
+    (2, 64, 128, 256, 32, 128, 64),
+    (4, 32, 64, 64, 32, 64, 64),
+    (8, 128, 256, 128, 128, 128, 128),
+]
+
+
+def _tol(dtype):
+    return (dict(atol=5e-2, rtol=5e-2) if dtype == jnp.bfloat16
+            else dict(atol=1e-3, rtol=1e-3))
+
+
+def _inputs(seed, E, C, d, f, dtype=jnp.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, C, d), dtype=np.float32).astype(dtype)
+    w = rng.standard_normal((E, d, f), dtype=np.float32).astype(dtype)
+    return x, w
+
+
+def _port(x, w):
+    return k5.moe_gemm(to_tensor(x), to_tensor(w)).float().numpy()
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("E,C,d,f,bc,bf,bd", SHAPES)
+def test_plain_matches_pallas_kernel(E, C, d, f, bc, bf, bd, dtype):
+    x, w = _inputs(0, E, C, d, f, dtype)
+    want = ref_ops.moe_gemm(jnp.asarray(x), jnp.asarray(w), block_c=bc,
+                            block_f=bf, block_d=bd, interpret=True)
+    got = _port(x, w)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", [(3, 37, 64, 48), (2, 1, 128, 8)])
+def test_plain_matches_oracle_ragged(E, C, d, f, dtype):
+    x, w = _inputs(1, E, C, d, f, dtype)
+    want = ref.moe_gemm_ref(jnp.asarray(x), jnp.asarray(w))
+    got = _port(x, w)
+    assert got.shape == (E, C, f)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+def test_wrapper_on_cpu_runs_plain_and_checks_shapes():
+    x, w = (to_tensor(a) for a in _inputs(2, 2, 5, 16, 24))
+    n0 = k5.moe_gemm.launches
+    out = k5.moe_gemm(x, w)
+    assert k5.moe_gemm.launches == n0
+    assert out.dtype == x.dtype and out.shape == (2, 5, 24)
+    torch.testing.assert_close(out, k5.moe_gemm_plain(x, w), rtol=0, atol=0)
+    for bad_x, bad_w in ((x[:, :, :12], w[:, :12]),     # d not a multiple of 8
+                         (x, w[:, :, :20]),             # f not a multiple of 8
+                         (x[:1], w),                    # E differs
+                         (x, w[:, :8]),                 # d differs
+                         (x[:, :0], w),                 # C = 0
+                         (x.double(), w.double()),      # dtype
+                         (x, w.bfloat16())):            # mixed dtypes
+        with pytest.raises(ValueError):
+            k5.moe_gemm(bad_x, bad_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", [
+    (8, 200, 512, 384),    # ragged C against a 128-row tile
+    (4, 8, 6144, 256),     # mixtral decode: C 8, d 6144
+    (3, 37, 72, 40),       # d and f not multiples of the tiles
+    (2, 1, 8, 8),          # one row, one 8-wide step
+])
+def test_kernel_matches_plain_on_card(E, C, d, f, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((E, C, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, d, f), dtype=np.float32)
+                         / np.sqrt(d, dtype=np.float32))
+    x, w = x.to(dev, dtype), w.to(dev, dtype)
+    n0 = k5.moe_gemm.launches
+    got = k5.moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert k5.moe_gemm.launches == n0 + 1
+    want = k5.moe_gemm_plain(x, w)
+    tol = (dict(atol=1e-4, rtol=1e-2) if dtype == torch.bfloat16
+           else dict(atol=1e-4, rtol=1e-4))
+    torch.testing.assert_close(got.float(), want.float(), **tol)

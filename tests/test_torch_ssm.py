@@ -138,7 +138,7 @@ def _models(use_kernels):
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = build_model(model_config_from_reference(ref_cfg),
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params)))
     return ref_cfg, ref_model, ref_params, model
@@ -213,7 +213,7 @@ def test_converter_carries_tm_and_cm_groups():
     ref_params = jax.tree_util.tree_map(
         np.asarray, ref_build_model(ref_cfg).init(jax.random.PRNGKey(0)))
     sd = params_from_reference(ref_params)
-    model = build_model(model_config_from_reference(ref_cfg))
+    model = build_model(model_config_from_reference(ref_cfg), device="cpu")
     assert set(sd) == set(model.state_dict())
     blocks = ref_params["blocks"]
     for i in range(ref_cfg.n_layers):
@@ -226,7 +226,7 @@ def test_converter_carries_tm_and_cm_groups():
     tm, cm = blocks["tm"], blocks["cm"]
     assert np.all(tm["mu"] == 0.5) and np.all(tm["w0"] == -0.5)
     assert np.all(tm["ln_out"] == 1.0) and np.all(cm["mu_k"] == 0.5)
-    mine = build_model(get_config(ARCH, reduced=True)).init(
+    mine = build_model(get_config(ARCH, reduced=True), device="cpu").init(
         torch.Generator().manual_seed(0))
     blk = mine.blocks[0]
     assert torch.all(blk.tm["mu"] == 0.5) and torch.all(blk.tm["w0"] == -0.5)

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's K4 and rwkv checks on copies of the tree, each with
-one planted fault, to show where each check's tolerance sits.
+"""Run chip_smoke.py's K4, rwkv, K5 and moe checks on copies of the tree,
+each with one planted fault, to show where each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
 For each fault it copies ``src/`` and ``chip_smoke.py`` into
-``build/planted/<name>/`` (git-ignored), replaces one line of the copy,
+``build/planted/<name>/`` (git-ignored), replaces one line (or a few) of
+the copy,
 runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
 touches (the copy builds its own kernels), and prints, as one JSON line
 per run, what the checks read: the kernel lines' errors, the rwkv line's
-route, decode and state checks, and the error that stopped the run. A
+route, decode and state checks, the moe line's per-layer route and oracle,
+decode, cache and float32 checks, and the error that stopped the run. A
 sound tree passes every check; each planted fault must fail one. Needs a
 CUDA device, as chip_smoke.py does.
 """
@@ -23,7 +25,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# name -> (file, the sound line, the faulty line, phases to run)
+# name -> (file, the sound line(s), the faulty line(s), phases to run)
 FAULTS = {
     "k4_no_bonus": (
         "src/repro_torch/csrc/rwkv_scan.cu",
@@ -37,24 +39,51 @@ FAULTS = {
         "src/repro_torch/models/ssm.py",
         "return y, state._replace(shift=x[:, 0], S=S_new)",
         "return y, state._replace(S=S_new)", ("rwkv",)),
+    "k5_skip_last_d_tile": (
+        "src/repro_torch/csrc/moe_gemm.cu",
+        "const int nk = (p.d + kBK - 1) / kBK;",
+        "const int nk = (p.d + kBK - 1) / kBK - 1;", ("k5", "moe")),
+    "k5_ragged_c_unmasked": (
+        "src/repro_torch/csrc/moe_gemm.cu",
+        ("if (r0 < p.C)", "if (r1 < p.C)"),
+        ("if (true)", "if (true)"), ("k5",)),
+    "k5_f32_skip_last_d_step": (
+        "src/repro_torch/csrc/moe_gemm.cu",
+        "for (int k0 = 0; k0 < p.d; k0 += kFK) {",
+        "for (int k0 = 0; k0 < p.d - kFK; k0 += kFK) {", ("k5", "moe")),
+    "combine_ignores_gate": (
+        "src/repro_torch/models/moe.py",
+        "w = (gate.reshape(T * K) * keep_u.float())[:, None]",
+        "w = keep_u.float()[:, None]", ("moe",)),
+    "grouped_pack_stride_off_by_one_group": (
+        "src/repro_torch/models/moe.py",
+        "sorted_e * (G * C) + grp * C + rank",
+        "sorted_e * ((G - 1) * C) + grp * C + rank", ("moe",)),
 }
 KEEP = ("case", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
         "err_over_limit_state", "k4_launches", "k4_vs_plain",
         "decode_vs_prefill", "state_vs_prefill", "f32_k4_vs_plain",
-        "f32_k4_vs_plain_state")
+        "f32_k4_vs_plain_state", "max_abs_err", "err_over_limit",
+        "k5_vs_library_max_abs_err", "k5_equals_library", "k5_launches",
+        "worst", "per_layer", "k5_vs_einsum_bf16_model",
+        "cache_vs_prefill", "f32_k5_vs_einsum")
 
 
 def plant(name: str) -> Path:
     path, sound, faulty, _ = FAULTS[name]
+    if isinstance(sound, str):
+        sound, faulty = (sound,), (faulty,)
     dst = ROOT / "build" / "planted" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "src", dst / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
     text = (dst / path).read_text()
-    if text.count(sound) != 1:
-        raise RuntimeError(f"{name}: the sound line is not once in {path}")
-    (dst / path).write_text(text.replace(sound, faulty))
+    for good, bad in zip(sound, faulty):
+        if text.count(good) != 1:
+            raise RuntimeError(f"{name}: {good!r} is not once in {path}")
+        text = text.replace(good, bad)
+    (dst / path).write_text(text)
     return dst
 
 
@@ -67,7 +96,7 @@ def run(name: str, phase: str) -> dict:
         if not line.startswith("{"):
             continue
         rec = json.loads(line)
-        if rec.get("phase") in ("kernel", "rwkv"):
+        if rec.get("phase") in ("kernel", "rwkv", "moe"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,

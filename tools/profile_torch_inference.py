@@ -4,15 +4,18 @@
     python3 tools/profile_torch_inference.py [--arch llama3.2-3b]
         [--batch 4] [--prompt-len 2048] [--gen 16]
     python3 tools/profile_torch_inference.py --arch rwkv6-1.6b
+    python3 tools/profile_torch_inference.py --arch mixtral-8x22b
 
 Loads the model as the inference demo does (random weights from a seed,
-on ``cuda:0``), warms up, then traces one prefill and, apart, the greedy
+on ``cuda:0``), at the depth chip_smoke.py runs it (``smoke_config``:
+mixtral-8x22b 8 of its 56 layers, which is what one card holds; the
+others whole), warms up, then traces one prefill and, apart, the greedy
 decode steps after it under ``torch.profiler`` (device activity only).
 For each part: wall time, the device's busy time (the sum of kernel and
 copy times), its idle share of the wall time, the time and share of the
 busy time of each hand-written kernel (K3 ``flash_attention``, K4
-``rwkv_scan``), and the kernels that took the most device time. Prints
-one JSON object.
+``rwkv_scan``, K5 ``moe_gemm``), and the kernels that took the most
+device time. Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-HAND_KERNELS = ("flash_attention", "rwkv_scan")
+HAND_KERNELS = ("flash_attention", "rwkv_scan", "moe_gemm")
 
 
 def device_summary(tp, wall_s: float, top: int = 12) -> dict:
@@ -58,14 +61,14 @@ def main(argv=None) -> int:
         print("profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import nvidia_smi
+    from chip_smoke import nvidia_smi, smoke_config
     from repro_torch.launch import inference_demo as demo
 
     dev = torch.device("cuda:0")
     act = [torch.profiler.ProfilerActivity.CUDA]
     cache_len = args.prompt_len + args.gen
     with torch.inference_mode():
-        cfg, model = demo.load_model(args.arch, False, 0, dev)
+        cfg, model = demo.load_model(smoke_config(args.arch), False, 0, dev)
         prompts = demo.make_prompts(cfg, args.batch, args.prompt_len, 0, dev)
         demo.generate(model, prompts, 2)  # warm-up
         torch.cuda.synchronize()
@@ -80,7 +83,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t
     print(json.dumps({
-        "card": nvidia_smi(), "arch": cfg.name, "batch": args.batch,
+        "card": nvidia_smi(), "arch": cfg.name, "n_layers": cfg.n_layers,
+        "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
         "prefill": device_summary(tp, prefill_s),
         "decode": {**device_summary(td, decode_s),
