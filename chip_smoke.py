@@ -76,17 +76,24 @@ JSON lines:
    80), its decode shapes ([8, 8, 6144]·[8, 6144, 16384] and
    [8, 8, 16384]·[8, 16384, 6144]), kimi-k2's expert widths with E cut
    from 384 to 64 ([64, 256, 7168]·[64, 7168, 2048]), the first prefill
-   shape in float32, and a ragged C of 37. Each case: K5,
-   plain and ``torch.bmm`` ms over CUDA events, the bound, and whether K5's
-   output equals ``torch.bmm``'s bit for bit. Every case runs and reports
-   before a failing one stops the phase.
+   shape in float32, a ragged C of 37, C 64 and 65 (the two sides of the
+   ``wide``/``narrow`` crossover), d 1000 (not a multiple of a stage), f
+   1032 (a ragged last f tile) and E 1, each of the last three on both
+   kernels. Each case: the variant ``pick_variant`` chose (and that it
+   counted), K5, plain and ``torch.bmm`` ms over CUDA events, the bound
+   and its share of K5's time, TFLOP/s and GB/s, and whether K5's output
+   equals ``torch.bmm``'s bit for bit. Every case runs and reports before a
+   failing one stops the phase. Then ``k5_crossover`` lines: both bf16
+   kernels, named, at C 8–64 at mixtral's two expert shapes, each held to
+   the plain version, with ``torch.bmm``'s ms beside them.
 10. ``moe`` — mixtral-8x22b at full width and 8 of its 56 layers in bf16 on
    ``cuda:0`` through the inference demo's ``load_model`` and
    ``generate``: batch 4, prompt 2048, 16 greedy tokens. K3's and K5's
    counts are set to 0 just before this run and read just after (K5: three
-   launches per layer in the prefill and in each decode step; K3: one per
-   prefill layer). Then, on the same weights: per layer, the MoE layer's
-   K5 route against its einsum route on the layer's own input (routing
+   launches per layer in the prefill, all ``wide``, and in each decode
+   step, all ``narrow``; K3: one per prefill layer). Then, on the same
+   weights: per layer, the MoE layer's K5 route against its einsum route
+   on the layer's own input (routing
    identical), within ``MOE_ROUTE_TOL``, and, at capacity factor
    ``n_experts / top_k`` (no token dropped), against a float32 oracle that
    runs each expert on the tokens routed to it, within ``MOE_ORACLE_TOL``;
@@ -178,9 +185,11 @@ K5_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (1e-4, 1e-2)}
 # no token dropped, against a float32 per-expert oracle (MOE_ORACLE_TOL);
 # the whole model's logits, K5 route against einsum route, in float32
 # (MOE_F32_TOL). Sound runs read 0.0 (K5 equals torch.bmm bit for bit),
-# <= 0.0096 and 4.8e-6; planted faults 0.12-0.15 (K5 skips its last d
-# tile), 0.118-1.35 (a fault in the MoE layer's dispatch or combine) and
-# 0.76 (K5's float32 loop skips its last 16 of d) (PERF.md, PR 14).
+# <= 0.0096 and 4.8e-6; planted faults 0.12-0.21 (K5 skips its last d
+# tile or k stage), 1.04-1.40 (K5's wide kernel frees a stage early or
+# drops a tile), 0.118-1.35 (a fault in the MoE layer's dispatch or
+# combine) and 0.76 (K5's float32 loop skips its last 16 of d) (PERF.md,
+# the planted-fault tables).
 MOE_ROUTE_TOL = 0.02
 MOE_ORACLE_TOL = 0.05
 MOE_F32_TOL = 1e-3
@@ -707,7 +716,7 @@ def check_rwkv_scan(torch):
             line.update({f"max_abs_err_{part}": float(diff.max()),
                          f"err_over_limit_{part}": r_,
                          f"rms_{part}": float(ref.pow(2).mean().sqrt())})
-            ratio = max(ratio, r_)
+            ratio = r_ if not r_ <= ratio else ratio  # NaN is kept
         line["max_abs_err"] = max(line["max_abs_err_out"],
                                   line["max_abs_err_state"])
         if full is None:
@@ -855,6 +864,7 @@ def check_moe_gemm(torch):
     from repro_torch.kernels import moe_gemm as k5
 
     gen = torch.Generator(torch.device("cuda:0")).manual_seed(5)
+    dev = gen.device
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, E, C, d, f, dtype
         ("mixtral-8x22b prefill w1/w3", 8, 2560, 6144, 16384, bf16),
@@ -864,18 +874,29 @@ def check_moe_gemm(torch):
         ("kimi-k2 widths, E 64", 64, 256, 7168, 2048, bf16),
         ("mixtral-8x22b prefill w1/w3 f32", 8, 2560, 6144, 16384, f32),
         ("ragged C 37", 8, 37, 6144, 1024, bf16),
+        ("C 64, the largest narrow", 8, 64, 6144, 16384, bf16),
+        ("C 65, the smallest wide", 8, 65, 6144, 16384, bf16),
+        ("d 1000, not a multiple of a stage, wide", 8, 300, 1000, 2048, bf16),
+        ("d 1000, narrow", 8, 8, 1000, 2048, bf16),
+        ("f 1032, a ragged last f tile, wide", 8, 300, 2048, 1032, bf16),
+        ("f 1032, narrow", 8, 8, 2048, 1032, bf16),
+        ("E 1, wide", 1, 2560, 6144, 16384, bf16),
+        ("E 1, narrow", 1, 8, 16384, 6144, bf16),
     ]
     first, bad = None, []
     for name, E, C, d, f, dtype in cases:
         atol, rtol = K5_TOL[str(dtype)]
-        dev = gen.device
+        variant = k5.pick_variant(C) if dtype == bf16 else "f32"
         x = torch.randn((E, C, d), generator=gen, device=dev).to(dtype)
         w = (torch.randn((E, d, f), generator=gen, device=dev)
              / d ** 0.5).to(dtype)
         n0 = k5.moe_gemm.launches
+        v0 = k5.moe_gemm.variant_launches[variant]
         out = k5.moe_gemm(x, w)
         torch.cuda.synchronize()
-        require(k5.moe_gemm.launches == n0 + 1, "K5 did not count")
+        require(k5.moe_gemm.launches == n0 + 1
+                and k5.moe_gemm.variant_launches[variant] == v0 + 1,
+                f"K5 did not count a {variant} launch")
         want = k5.moe_gemm_plain(x, w)
         diff = (out.float() - want.float()).abs()
         err = float(diff.max())
@@ -893,7 +914,8 @@ def check_moe_gemm(torch):
         byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         iters = 3 if dtype == f32 else 10
         line = dict(
-            name="moe_gemm", case=name, dtype=str(dtype), E=E, C=C, d=d, f=f,
+            name="moe_gemm", case=name, variant=variant, dtype=str(dtype),
+            E=E, C=C, d=d, f=f,
             max_abs_err=err, atol=atol, rtol=rtol, err_over_limit=ratio,
             rms_out=float(want.float().pow(2).mean().sqrt()),
             ms=cuda_ms(torch, lambda: k5.moe_gemm(x, w), iters),
@@ -904,9 +926,12 @@ def check_moe_gemm(torch):
             k5_equals_library=k5_equals_lib, flops=flops, bytes=nbytes,
             bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes")
+        line["bound_share"] = line["bound_ms"] / line["ms"]
+        line["k5_over_library"] = line["ms"] / line["library_ms"]
         line["tflops"] = flops / line["ms"] / 1e9
+        line["gb_per_s"] = nbytes / line["ms"] / 1e6
         emit("kernel", **line)
-        if ratio > 1.0:
+        if not ratio <= 1.0:  # NaN fails too
             bad.append(f"{name}: max_abs_err {err}, {ratio} x the limit")
         if first is None:
             first = line
@@ -914,7 +939,38 @@ def check_moe_gemm(torch):
         torch.cuda.empty_cache()
     # every case runs and reports before a failure stops the phase
     require(not bad, f"K5 != plain: {bad}")
+    check_k5_crossover(torch, k5, gen)
     return first
+
+
+def check_k5_crossover(torch, k5, gen):
+    """Both bf16 kernels, named, at the C that either takes, at mixtral's
+    two expert shapes: ms of each and of ``torch.bmm``, each kernel held to
+    the plain version within K5_TOL. Where ``narrow`` stops being faster
+    is the crossover that ``pick_variant`` encodes."""
+    atol, rtol = K5_TOL["torch.bfloat16"]
+    for d, f in ((6144, 16384), (16384, 6144)):
+        w = (torch.randn((8, d, f), generator=gen, device=gen.device)
+             / d ** 0.5).bfloat16()
+        for C in (8, 16, 32, 48, 64):
+            x = torch.randn((8, C, d), generator=gen,
+                            device=gen.device).bfloat16()
+            want = k5.moe_gemm_plain(x, w).float()
+            line = dict(E=8, C=C, d=d, f=f, picked=k5.pick_variant(C))
+            for variant in ("narrow", "wide"):
+                got = k5.launch(x, w, variant).float()
+                ratio = float(((got - want).abs()
+                               / (atol + rtol * want.abs())).max())
+                require(ratio <= 1.0, f"K5 {variant} at C {C}, d {d}: "
+                        f"{ratio} x the limit")
+                line[f"{variant}_err_over_limit"] = ratio
+                line[f"{variant}_ms"] = cuda_ms(
+                    torch, lambda v=variant: k5.launch(x, w, v), 10)
+            line["library_ms"] = cuda_ms(torch, lambda: torch.bmm(x, w), 10)
+            emit("k5_crossover", **line)
+            del x, want, got
+        del w
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -996,23 +1052,27 @@ def run_moe(torch):
 
         # the main path: counts from zero, driven once, read right after
         fa.flash_attention.launches = 0
-        k5.moe_gemm.launches = 0
+        k5.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         out = demo.generate(model, prompts, gen)
         launches = {"moe_gemm": k5.moe_gemm.launches,
                     "flash_attention": fa.flash_attention.launches}
+        k5_variants = dict(k5.moe_gemm.variant_launches)
         peak = torch.cuda.max_memory_allocated()
         tokens = out["tokens"].cpu().numpy()
         finite = bool(torch.isfinite(out["logits"]).all())
 
         # the launches of one prefill and of one decode step apart
-        k5.moe_gemm.launches = fa.flash_attention.launches = 0
+        k5.reset_counts()
+        fa.flash_attention.launches = 0
         _, cache = model.prefill(prompts, P + gen)
         per = {"k5_prefill": k5.moe_gemm.launches,
+               "k5_prefill_variants": dict(k5.moe_gemm.variant_launches),
                "k3_prefill": fa.flash_attention.launches}
-        k5.moe_gemm.launches = 0
+        k5.reset_counts()
         model.decode_step(cache, out["tokens"][:, :1])
         per["k5_decode_step"] = k5.moe_gemm.launches
+        per["k5_decode_step_variants"] = dict(k5.moe_gemm.variant_launches)
         del cache
 
         # per layer, on the layer's own input: the two routes, and (no
@@ -1091,7 +1151,8 @@ def run_moe(torch):
         decode_s=out["decode_s"],
         decode_tok_per_s=(gen - 1) * B / out["decode_s"],
         prefill_ms_k5_route=t_k, prefill_ms_einsum_route=t_e,
-        k5_launches=launches["moe_gemm"],
+        k5_over_einsum_prefill=t_k / t_e,
+        k5_launches=launches["moe_gemm"], k5_variant_launches=k5_variants,
         k3_launches=launches["flash_attention"], **per,
         max_memory_allocated=peak, logits_finite=finite,
         dropped_share_published_cf=sum(x["dropped"] for x in per_layer) / L,
@@ -1110,6 +1171,13 @@ def run_moe(torch):
             f"want {3 * L * gen}")
     require(per["k5_prefill"] == 3 * L and per["k5_decode_step"] == 3 * L,
             f"K5 launches per prefill / decode step: {per}, want {3 * L}")
+    # prefill (C 80 a group) on the wide kernel, decode (C 8) on the narrow
+    require(k5_variants == {"f32": 0, "wide": 3 * L,
+                            "narrow": 3 * L * (gen - 1)}
+            and per["k5_prefill_variants"]["wide"] == 3 * L
+            and per["k5_decode_step_variants"]["narrow"] == 3 * L,
+            f"K5 variants: {k5_variants}, {per}: want every prefill launch "
+            "wide and every decode launch narrow")
     require(launches["flash_attention"] == L and per["k3_prefill"] == L,
             f"K3 launches: {launches}, {per}, want {L} per prefill")
     require(worst["route"] <= MOE_ROUTE_TOL,

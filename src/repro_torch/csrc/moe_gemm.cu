@@ -1,6 +1,6 @@
 // Grouped (per-expert) matrix product of the MoE layer.
 //
-// Both kernels here replace the Pallas kernel
+// The kernels here replace the Pallas kernel
 //   src/repro/kernels/moe_gemm.py::moe_gemm (_moe_gemm_kernel):
 //   out[e] = x[e] @ w[e] for the capacity-packed expert buffer x [E, C, d]
 //   and the expert weights w [E, d, f], out [E, C, f], with a float32
@@ -11,38 +11,60 @@
 // one float32 product, the result cast back) up to float32 summation order;
 // a bfloat16 output then differs by at most one rounding step. Any C >= 1
 // (rows past C are read as zeros and not stored); d and f multiples of 8,
-// so that every row starts on a 16-byte boundary; x, w, out contiguous.
+// so that every row starts on a 16-byte boundary; x, w, out contiguous and
+// 16-byte aligned.
 //
-// What bounds it on an H100: operations, in the model's prefill. At
-// mixtral-8x22b's expert shape [8, 2560, 6144] x [8, 6144, 16384] it does
-// 4.12 TFLOP against 2.53 GB of inputs and output (4.17 ms against 0.76 ms
-// at the card's peaks). In decode (C 8) it is bytes: the 1.61 GB of w.
+// What bounds it on an H100: operations in the model's prefill, bytes in
+// its decode. At mixtral-8x22b's prefill shape [8, 2560, 6144] x [8, 6144,
+// 16384] it does 4.12 TFLOP against 2.53 GB of inputs and output (4.17 ms
+// against 0.76 ms at the card's peaks); in decode (C 8) the 1.61 GB of w
+// take 0.48 ms and the products 0.013 ms.
 //
 // Design. The TPU kernel's sequential d-block grid axis, which carries the
-// accumulator in scratch memory, becomes a loop inside the block; the grid
-// is (f tiles, C tiles, E), one block per 128 x 128 output tile.
+// accumulator in scratch memory, becomes a loop inside the block over a
+// ring of shared-memory stages. bfloat16 has two kernels, chosen by the
+// wrapper from C alone (repro_torch.kernels.moe_gemm.pick_variant):
 //
-// * bfloat16 (the model's path): 8 warps on the tensor cores with mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate), each warp owning a 64 x 32 part of
-//   the tile (4 x 4 fragments, 64 accumulators a thread). The d loop walks
-//   32-deep stages through a ring of three shared-memory buffers: cp.async
-//   streams stage k + 2 in while the warps compute on stage k. x rows are
-//   [C, d] with d contiguous, so A fragments load as 32-bit pairs; w is
-//   [d, f] with f contiguous, so its B fragments come by ldmatrix.trans,
-//   as K3's V does. Rows are padded by 8 elements so that no fragment load
-//   has a bank conflict. The ragged C and d edges are zero-filled by
-//   cp.async (a source size of 0) and the store is masked.
+// * wide (C > 64: prefill). Persistent: one block per SM walks the 128 x
+//   256 output tiles expert by expert; inside an expert in groups of
+//   kGroupF f tiles, the C tiles fastest, so that the [d, 256] weight
+//   panels of a group stay in L2 while every C tile passes over them. A
+//   producer warp issues TMA loads (x box 128 rows x 64 of d; w four boxes
+//   64 of d x 64 of f, all 128B-swizzled) into a ring of kWStages stages
+//   behind full/empty mbarriers; two consumer warpgroups each run wgmma
+//   m64n256k16 on 64 rows of the tile (x K-major as A, w MN-major as B,
+//   the transpose-B bit set), with one wgmma group in flight while the next
+//   stage is waited for. setmaxnreg gives the producer's registers to the
+//   consumers (128 accumulators a thread). The epilogue stores bf16 pairs
+//   from registers, masked at C and f, while the producer already loads the
+//   next tile.
+// * narrow (C <= 64: decode). The time is w's bytes, and a 64-row wgmma
+//   tile over C would compute padded rows, so the operands swap:
+//   out^T[f, C] = w^T x^T, with 64 columns of w as the M of wgmma
+//   m64nNk16 (w MN-major as A, the transpose-A bit set) and x K-major as B,
+//   N = C rounded up to 8, 16, 32 or 64. One block per 64 f columns of an
+//   expert; a producer warp keeps a deep ring of 128-deep stages of w (16
+//   KB) and x in flight. The store is masked at C and f.
+//
+// The 3-D tensor maps ([E, C, d] for x, [E, d, f] for w) make TMA fill
+// zeros past each expert's C, past d and past f, so no tile reads another
+// expert's rows. They are encoded on the host at every launch by
+// cuTensorMapEncodeTiled (libcuda), reached through cudaGetDriverEntryPoint
+// (no -lcuda), and passed as __grid_constant__ kernel parameters.
+//
 // * float32: 256 threads on the CUDA cores (no tensor-core rate would keep
 //   float32 accuracy), each holding a 4 x 4 part of a 64 x 64 tile; x^T
 //   and w pass through shared memory 16 deep.
-//
-// Left for later: wgmma fed by TMA with a warp-specialised producer, a
-// persistent grid, and a tile shape for the decode's few rows.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 struct Params {
   const void* x;
@@ -51,191 +73,267 @@ struct Params {
   int C, d, f;
 };
 
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores, mma.sync m16n8k16
-
-constexpr int kBM = 128;       // rows of x (capacity slots) per block
-constexpr int kBN = 128;       // columns of w per block
-constexpr int kBK = 32;        // depth of a stage
-constexpr int kStages = 3;     // the ring of shared-memory stages
-constexpr int kThreads = 256;  // 8 warps: 2 along the rows x 4 along f
-constexpr int kAS = kBK + 8;   // row stride of the x tile (elements)
-constexpr int kBS = kBN + 8;   // row stride of the w tile (elements)
-constexpr int kATile = kBM * kAS;
-constexpr int kBTile = kBK * kBS;
-constexpr int kMmaSmemBytes = kStages * (kATile + kBTile) * 2;
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i, and register i holds the fragment of matrix i
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
+// the bfloat16 kernels read x and w through their tensor maps
+struct Dims {
+  void* o;
+  int E, C, d, f;
+};
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+// bytes of a 128B-swizzled bf16 box: rows x 64 elements
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+
+// ---------------------------------------------------------------------------
+// bfloat16, wide: persistent, TMA + wgmma m64n256k16, warp-specialised
+
+constexpr int kWM = 128;              // rows of x (capacity slots) a tile
+constexpr int kWN = 256;              // columns of w a tile
+constexpr int kWK = 64;               // depth of a stage
+constexpr int kWStages = 4;           // the ring: 4 x 48 KB
+constexpr int kWThreads = 384;        // producer warpgroup + 2 consumers
+constexpr int kGroupF = 8;            // f tiles walked together
+constexpr int kWABytes = box_bytes(kWM);          // 16 KB
+constexpr int kWBBox = box_bytes(kWK);            // 8 KB: 64 of d x 64 of f
+constexpr int kWBBytes = (kWN / 64) * kWBBox;     // 32 KB
+constexpr int kWStageBytes = kWABytes + kWBBytes;
+constexpr int kWSmemBytes = kWStages * kWStageBytes + 1024 + 128;
+
+struct WideTile {
+  int e, row0, col0;
+};
+
+// tile t of the walk: expert-major; inside an expert, groups of kGroupF f
+// tiles, C tiles fastest inside a group
+__device__ __forceinline__ WideTile wide_tile(int t, int tiles_c,
+                                              int tiles_f) {
+  const int per_e = tiles_c * tiles_f;
+  const int e = t / per_e;
+  const int r = t - e * per_e;
+  const int group = r / (kGroupF * tiles_c);
+  const int in_group = r - group * (kGroupF * tiles_c);
+  const int ct = in_group % tiles_c;
+  const int ft = group * kGroupF + in_group / tiles_c;
+  return {e, ct * kWM, ft * kWN};
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+
+__global__ void __launch_bounds__(kWThreads, 1)
+    moe_gemm_wide_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                         const __grid_constant__ CUtensorMap tmap_w,
+                         const Dims p) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128B-swizzled tiles start on 1024-byte boundaries
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWStages * kWStageBytes);
+  uint64_t* empty = full + kWStages;
+  auto stage_a = [&](int s) { return smem + s * kWStageBytes; };
+  auto stage_b = [&](int s) { return smem + s * kWStageBytes + kWABytes; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrival + the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int tiles_c = (p.C + kWM - 1) / kWM;
+  const int tiles_f = (p.f + kWN - 1) / kWN;
+  const int n_tiles = p.E * tiles_c * tiles_f;
+  const int nk = (p.d + kWK - 1) / kWK;
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const WideTile tile = wide_tile(t, tiles_c, tiles_f);
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_arrive_expect_tx(&full[s], kWStageBytes);
+          const int k0 = kb * kWK;
+          tma_load_3d(stage_a(s), &tmap_x, &full[s], k0, tile.row0, tile.e);
+#pragma unroll
+          for (int i = 0; i < kWN / 64; ++i)
+            tma_load_3d(stage_b(s) + i * kWBBox, &tmap_w, &full[s],
+                        tile.col0 + 64 * i, k0, tile.e);
+          if (++s == kWStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups 1 and 2: rows 64 (wg - 1).. of each tile
+    regs_alloc<232>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    float acc[kWN / 2];
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WideTile tile = wide_tile(t, tiles_c, tiles_f);
+      int prev = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[s], phase);
+        const uint8_t* a = stage_a(s) + wg * box_bytes(64);
+        const uint8_t* b = stage_b(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk)
+          wgmma_bf16<0, 1>(acc, desc_sw128(a + 32 * kk, 16, 1024),
+                           desc_sw128(b + 2048 * kk, kWBBox, 1024),
+                           kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the group of k-block kb - 1 has finished...
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);  // ...free it
+        prev = s;
+        if (++s == kWStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      fence_regs(acc);
+
+      // C fragments: acc[4j..4j+1] at (r0, c), acc[4j+2..4j+3] at (r0 + 8, c)
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) +
+                         (long long)tile.e * p.C * p.f;
+      const int r0 = tile.row0 + wg * 64 + warp * 16 + lane / 4;
+      const int c0 = tile.col0 + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+        const int c = c0 + 8 * j;
+        if (c >= p.f) continue;
+        if (r0 < p.C)
+          *reinterpret_cast<unsigned*>(o + (long long)r0 * p.f + c) =
+              pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < p.C)
+          *reinterpret_cast<unsigned*>(o + (long long)(r0 + 8) * p.f + c) =
+              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16, narrow: out^T = w^T x^T with wgmma m64nNk16, N = C rounded up
+
+constexpr int kNM = 64;          // columns of w (rows of out^T) a block
+constexpr int kNK = 128;         // depth of a stage
+constexpr int kNThreads = 160;   // consumer warpgroup + producer warp
+constexpr int kNWBytes = box_bytes(kNK);  // 16 KB: 128 of d x 64 of f
+
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+struct Narrow {
+  static constexpr int kXBox = box_bytes(N);            // 64 of d x N rows
+  static constexpr int kStageBytes = kNWBytes + 2 * kXBox;
+  // as deep as fits two blocks an SM (~110 KB each)
+  static constexpr int kStages =
+      (110 * 1024 / kStageBytes) < 8 ? (110 * 1024 / kStageBytes) : 8;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024 + 128;
+};
 
-// Start copying the stage at depth k0: x rows row0.. (kBM x kBK) and w rows
-// k0.. at columns col0.. (kBK x kBN), in 16-byte vectors; vectors past C,
-// d or f are zero.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* sA,
-                                           __nv_bfloat16* sB,
-                                           const __nv_bfloat16* x,
-                                           const __nv_bfloat16* w,
-                                           const Params& p, int row0,
-                                           int col0, int k0) {
-  constexpr int kAVec = kBK / 8;
-  for (int e = threadIdx.x; e < kBM * kAVec; e += kThreads) {
-    const int r = e / kAVec;
-    const int c = (e - r * kAVec) * 8;
-    const bool ok = row0 + r < p.C && k0 + c < p.d;
-    cp_async16(sA + r * kAS + c,
-               ok ? x + (long long)(row0 + r) * p.d + k0 + c : x, ok);
-  }
-  constexpr int kBVec = kBN / 8;
-  for (int e = threadIdx.x; e < kBK * kBVec; e += kThreads) {
-    const int r = e / kBVec;
-    const int c = (e - r * kBVec) * 8;
-    const bool ok = k0 + r < p.d && col0 + c < p.f;
-    cp_async16(sB + r * kBS + c,
-               ok ? w + (long long)(k0 + r) * p.f + col0 + c : w, ok);
-  }
-}
+template <int N>
+__global__ void __launch_bounds__(kNThreads)
+    moe_gemm_narrow_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                           const __grid_constant__ CUtensorMap tmap_w,
+                           const Dims p) {
+  using T = Narrow<N>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kStages * T::kStageBytes);
+  uint64_t* empty = full + T::kStages;
+  auto stage_w = [&](int s) { return smem + s * T::kStageBytes; };
+  auto stage_x = [&](int s) { return smem + s * T::kStageBytes + kNWBytes; };
 
-__global__ void __launch_bounds__(kThreads, 2)
-    moe_gemm_mma_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* sA = sm;                       // kStages x [kBM][kAS]
-  __nv_bfloat16* sB = sm + kStages * kATile;    // kStages x [kBK][kBS]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // fragment column pair
-  const int wm = warp >> 2;  // this warp's 64 rows: wm * 64..
-  const int wn = warp & 3;   // this warp's 32 columns: wn * 32..
-  const int col0 = blockIdx.x * kBN;
-  const int row0 = blockIdx.y * kBM;
-  const int e = blockIdx.z;
-  const __nv_bfloat16* x =
-      static_cast<const __nv_bfloat16*>(p.x) + (long long)e * p.C * p.d;
-  const __nv_bfloat16* w =
-      static_cast<const __nv_bfloat16*>(p.w) + (long long)e * p.d * p.f;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + (long long)e * p.C * p.f;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-  const int nk = (p.d + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk)
-      load_stage(sA + s * kATile, sB + s * kBTile, x, w, p, row0, col0,
-                 s * kBK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has arrived
-    __syncthreads();  // ...for every thread; stage kt - 1 is read by all
-    {
-      const int nt = kt + kStages - 1;  // refill the buffer of stage kt - 1
-      if (nt < nk)
-        load_stage(sA + (nt % kStages) * kATile, sB + (nt % kStages) * kBTile,
-                   x, w, p, row0, col0, nt * kBK);
-      cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
     }
-    const __nv_bfloat16* a_t = sA + (kt % kStages) * kATile;
-    const __nv_bfloat16* b_t = sB + (kt % kStages) * kBTile;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // A fragments: a0 (g, 2t), a1 (g+8, 2t), a2 (g, 2t+8), a3 (g+8, 2t+8)
-      unsigned af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat16* r0 =
-            a_t + (wm * 64 + i * 16 + g) * kAS + kk * 16 + 2 * t;
-        af[i][0] = ld32(r0);
-        af[i][1] = ld32(r0 + 8 * kAS);
-        af[i][2] = ld32(r0 + 8);
-        af[i][3] = ld32(r0 + 8 * kAS + 8);
-      }
-      // B fragments (k 2t.., n g) of w [k][n] by ldmatrix.trans, two
-      // n-tiles of 8 per load
-      unsigned bf[4][2];
-      const __nv_bfloat16* br =
-          b_t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kBS +
-          wn * 32 + (lane >> 4) * 8;
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, br + nn * 16);
-        bf[2 * nn][0] = r[0];
-        bf[2 * nn][1] = r[1];
-        bf[2 * nn + 1][0] = r[2];
-        bf[2 * nn + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
+    fence_barrier_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // C fragments: c0, c1 at (g, 2t..2t+1), c2, c3 at (g + 8, 2t..2t+1)
+  const int f0 = blockIdx.x * kNM;
+  const int e = blockIdx.y;
+  const int nk = (p.d + kNK - 1) / kNK;
+
+  if (threadIdx.x >= 128) {
+    // producer warp
+    if (threadIdx.x == 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_arrive_expect_tx(&full[s], T::kStageBytes);
+        const int kd = kb * kNK;
+        tma_load_3d(stage_w(s), &tmap_w, &full[s], f0, kd, e);
+        tma_load_3d(stage_x(s), &tmap_x, &full[s], kd, 0, e);
+        tma_load_3d(stage_x(s) + T::kXBox, &tmap_x, &full[s], kd + 64, 0, e);
+        if (++s == T::kStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup: out^T rows f0.., all N columns
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    float acc[N / 2];
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[s], phase);
+      const uint8_t* wt = stage_w(s);
+      const uint8_t* xt = stage_x(s);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r0 = row0 + wm * 64 + i * 16 + g;
-    const int r1 = r0 + 8;
+      for (int kk = 0; kk < kNK / 16; ++kk)
+        wgmma_bf16<1, 0>(acc, desc_sw128(wt + 2048 * kk, 16, 1024),
+                         desc_sw128(xt + (kk / 4) * T::kXBox + 32 * (kk % 4),
+                                    16, 1024),
+                         kb > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == T::kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    fence_regs(acc);
+
+    // out^T fragments: acc[4j + 2h + i] at f row fr = f0 + 16 warp + lane / 4
+    // + 8h, C column c + i, c = 8j + 2 (lane % 4)
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) +
+                       (long long)e * p.C * p.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + wn * 32 + j * 8 + 2 * t;
-      if (col >= p.f) continue;
-      if (r0 < p.C)
-        *reinterpret_cast<unsigned*>(o + (long long)r0 * p.f + col) =
-            pack_bf16(acc[i][j][0], acc[i][j][1]);
-      if (r1 < p.C)
-        *reinterpret_cast<unsigned*>(o + (long long)r1 * p.f + col) =
-            pack_bf16(acc[i][j][2], acc[i][j][3]);
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fr = f0 + warp * 16 + lane / 4 + 8 * h;
+        if (fr >= p.f) continue;
+        if (c < p.C)
+          o[(long long)c * p.f + fr] = __float2bfloat16_rn(acc[4 * j + 2 * h]);
+        if (c + 1 < p.C)
+          o[(long long)(c + 1) * p.f + fr] =
+              __float2bfloat16_rn(acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
@@ -314,17 +412,123 @@ __global__ void __launch_bounds__(kFThreads)
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// host side
+
+namespace {
+
+constexpr int kErrNoEncoder = -1;  // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = -2;     // it refused a tensor map
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 tensor [outer][rows][inner], read in
+// boxes of box_rows x 64 inner elements with 128-byte swizzle; what lies
+// outside the tensor reads as zeros.
+int map_3d(CUtensorMap* m, const void* base, int inner, int rows, int outer,
+           int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)inner * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+int launch_wide(const void* x, const void* w, const Dims& p,
+                cudaStream_t st) {
+  CUtensorMap tx, tw;
+  int err = map_3d(&tx, x, p.d, p.C, p.E, kWM);
+  if (err == 0) err = map_3d(&tw, w, p.f, p.d, p.E, kWK);
+  if (err != 0) return err;
+  cudaError_t ce = cudaFuncSetAttribute(
+      moe_gemm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWSmemBytes);
+  int dev = 0, sms = 0;
+  if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const int n_tiles =
+      p.E * ((p.C + kWM - 1) / kWM) * ((p.f + kWN - 1) / kWN);
+  const int grid = n_tiles < sms ? n_tiles : sms;
+  moe_gemm_wide_kernel<<<grid, kWThreads, kWSmemBytes, st>>>(tx, tw, p);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_narrow(const void* x, const void* w, const Dims& p,
+                  cudaStream_t st) {
+  CUtensorMap tx, tw;
+  int err = map_3d(&tx, x, p.d, p.C, p.E, N);
+  if (err == 0) err = map_3d(&tw, w, p.f, p.d, p.E, kNK);
+  if (err != 0) return err;
+  const cudaError_t ce = cudaFuncSetAttribute(
+      moe_gemm_narrow_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Narrow<N>::kSmemBytes);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid((p.f + kNM - 1) / kNM, p.E);
+  moe_gemm_narrow_kernel<N>
+      <<<grid, kNThreads, Narrow<N>::kSmemBytes, st>>>(tx, tw, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// Enqueues one kernel on `stream` and returns cudaGetLastError().
-// dtype: 0 float32, 1 bfloat16. x [E, C, d], w [E, d, f] and out [E, C, f]
-// contiguous, E >= 1, C >= 1, d and f positive multiples of 8; for bfloat16
-// the pointers are 16-byte aligned (the tiles move in 16-byte vectors).
-int moe_gemm_launch(const void* x, const void* w, void* o, int dtype, int E,
+// Enqueues one kernel on `stream` and returns 0 or an error code for
+// moe_gemm_error_string. kind: 0 float32 (CUDA cores), 1 bfloat16 wide,
+// 2 bfloat16 narrow (C <= 64). x [E, C, d], w [E, d, f] and out [E, C, f]
+// contiguous, E >= 1, C >= 1, d and f positive multiples of 8; for
+// bfloat16 the pointers are 16-byte aligned (TMA).
+int moe_gemm_launch(const void* x, const void* w, void* o, int kind, int E,
                     int C, int d, int f, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   if (E < 1 || C < 1 || d < 8 || f < 8 || d % 8 || f % 8)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind != 0) {
+    const Dims p = {o, E, C, d, f};
+    if (kind == 1) return launch_wide(x, w, p, st);
+    if (C <= 8) return launch_narrow<8>(x, w, p, st);
+    if (C <= 16) return launch_narrow<16>(x, w, p, st);
+    if (C <= 32) return launch_narrow<32>(x, w, p, st);
+    if (C <= 64) return launch_narrow<64>(x, w, p, st);
+    return (int)cudaErrorInvalidValue;
+  }
   Params p;
   p.x = x;
   p.w = w;
@@ -332,23 +536,15 @@ int moe_gemm_launch(const void* x, const void* w, void* o, int dtype, int E,
   p.C = C;
   p.d = d;
   p.f = f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // above 48 KB a block's shared memory must be opted in
-    const cudaError_t opt_in = cudaFuncSetAttribute(
-        moe_gemm_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMmaSmemBytes);
-    if (opt_in != cudaSuccess) return (int)opt_in;
-    const dim3 grid((f + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
-    moe_gemm_mma_kernel<<<grid, kThreads, kMmaSmemBytes, st>>>(p);
-  } else {
-    const dim3 grid((f + kFN - 1) / kFN, (C + kFM - 1) / kFM, E);
-    moe_gemm_f32_kernel<<<grid, kFThreads, 0, st>>>(p);
-  }
+  const dim3 grid((f + kFN - 1) / kFN, (C + kFM - 1) / kFM, E);
+  moe_gemm_f32_kernel<<<grid, kFThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 const char* moe_gemm_error_string(int err) {
+  if (err == kErrNoEncoder)
+    return "libcuda has no cuTensorMapEncodeTiled";
+  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -4,7 +4,13 @@ Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers, so a
 build takes seconds) and becomes its own shared library, compiled for
 ``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the
 repository root (git-ignored). The library's name carries a hash of its
-source, so an edited source builds anew; the compiler's report
+source and of the shared headers (``csrc/*.cuh``, which a source includes
+by a relative path), so an edited source or header builds anew. The flags
+are ``NVCC_FLAGS``: ``sm_90a`` (``wgmma`` and ``setmaxnreg`` exist only
+there), C++17, ``-O3``, a position-independent shared library, and
+``-Xptxas -v``; no library is linked beyond the CUDA runtime that
+``nvcc`` links by default (libcuda's ``cuTensorMapEncodeTiled`` is
+reached through ``cudaGetDriverEntryPoint``). The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside it as
 ``.log``. :func:`build` starts one ``nvcc`` per source that is not built
 yet, all at once, and waits for them together.
@@ -38,8 +44,12 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where the shared library of the current ``src`` is (to be) built."""
-    tag = hashlib.sha1(Path(src).read_bytes()).hexdigest()[:12]
+    """Where the shared library of the current ``src`` and headers is (to
+    be) built."""
+    digest = hashlib.sha1(Path(src).read_bytes())
+    for header in sorted(Path(src).parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}_{tag}.so"
 
 

@@ -9,11 +9,15 @@ accumulator over the whole d loop and the output in x's dtype, as
 ``repro/kernels/ref.py::moe_gemm_ref`` does.
 
 The wrapper takes tensors: on CPU tensors it runs :func:`moe_gemm_plain`,
-on CUDA tensors it launches the kernel or raises — there is no fallback
-between the two. ``moe_gemm.launches`` counts the kernel's launches. bf16
-runs on the tensor cores, float32 on the CUDA cores. Unlike the
-reference's launcher it takes any C >= 1 (no block multiple); d and f must
-be multiples of 8 (16-byte rows) on every device.
+on CUDA tensors it launches a kernel or raises — there is no fallback
+between the two. bf16 runs on the tensor cores in one of two kernels,
+chosen by shape alone (:func:`pick_variant`): ``wide`` (persistent, TMA and
+``wgmma`` on 128 × 256 tiles; prefill) above ``NARROW_MAX_C`` rows and
+``narrow`` (``out^T = w^T x^T``, the weights streamed; decode) up to it.
+float32 runs on the CUDA cores (variant ``f32``). ``moe_gemm.launches``
+counts the kernels' launches, ``moe_gemm.variant_launches`` the same per
+variant. Unlike the reference's launcher it takes any C >= 1 (no block
+multiple); d and f must be multiples of 8 (16-byte rows) on every device.
 """
 from __future__ import annotations
 
@@ -24,7 +28,20 @@ import torch
 from . import _build
 
 _SRC = _build.CSRC / "moe_gemm.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = {"f32": 0, "wide": 1, "narrow": 2}  # the kernel's `kind`
+# The largest C the narrow kernel takes (its N: C rounded up to 8, 16, 32
+# or 64); up to it, narrow is as fast as wide or faster (chip_smoke.py's
+# k5_crossover lines measure both).
+NARROW_MAX_C = 64
+
+
+def pick_variant(C: int) -> str:
+    """The bf16 kernel for C rows an expert: ``narrow`` up to
+    ``NARROW_MAX_C`` (the product is bound by w's bytes, and ``narrow``
+    computes no padded row), ``wide`` above. d and f do not enter: both
+    kernels read w once at every d and f."""
+    return "narrow" if C <= NARROW_MAX_C else "wide"
 
 
 def moe_gemm_plain(x, w):
@@ -73,31 +90,55 @@ def _check(x, w):
 def moe_gemm(x, w):
     """x: [E, C, d]; w: [E, d, f] -> [E, C, f] in x's dtype.
 
-    CPU tensors run :func:`moe_gemm_plain`; CUDA tensors launch the kernel,
-    which takes contiguous float32 or bfloat16 inputs (bfloat16 16-byte
-    aligned). Anything else raises ``ValueError``."""
+    CPU tensors run :func:`moe_gemm_plain`; CUDA tensors launch the kernel
+    that :func:`pick_variant` names (bf16) or the float32 one. Anything
+    the kernels do not take raises ``ValueError``."""
     _check(x, w)
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w)
+    variant = "f32" if x.dtype == torch.float32 else pick_variant(x.shape[1])
+    return launch(x, w, variant)
+
+
+def launch(x, w, variant: str):
+    """Launch one kernel on CUDA tensors: ``variant`` is ``f32`` for
+    float32, ``wide`` or ``narrow`` (C <= ``NARROW_MAX_C``) for bfloat16.
+    :func:`moe_gemm` picks it; measuring the crossover names it. Inputs
+    contiguous and 16-byte aligned; anything else raises ``ValueError``."""
+    _check(x, w)
+    E, C, d = x.shape
+    f = w.shape[2]
+    if variant not in VARIANTS or (variant == "f32") != (x.dtype ==
+                                                         torch.float32):
+        raise ValueError(f"variant {variant!r} does not take {x.dtype}")
+    if variant == "narrow" and C > NARROW_MAX_C:
+        raise ValueError(f"the narrow kernel takes C <= {NARROW_MAX_C}, "
+                         f"not {C}")
+    if x.device.type != "cuda":
+        raise ValueError(f"launch needs CUDA tensors, not {x.device}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    E, C, d = x.shape
-    f = w.shape[2]
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.moe_gemm_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), VARIANTS[variant],
             E, C, d, f, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         msg = lib.moe_gemm_error_string(err).decode()
-        raise RuntimeError(f"moe_gemm launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"moe_gemm launch failed: error {err} ({msg})")
     moe_gemm.launches += 1
+    moe_gemm.variant_launches[variant] += 1
     return out
 
 
-moe_gemm.launches = 0
+def reset_counts():
+    """Set ``moe_gemm.launches`` and every variant's count to 0."""
+    moe_gemm.launches = 0
+    moe_gemm.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+reset_counts()

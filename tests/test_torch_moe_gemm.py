@@ -11,11 +11,14 @@ reference's tests draw them), go through:
   1), which the Pallas launcher does not take.
 
 On the CPU the port's wrapper runs its plain version (the tensors lie on
-the CPU); the kernel itself is held to that plain version by the
-``cuda``-marked test, which skips on a host without a CUDA device. Both
-accumulate in float32 and differ only in summation order, so that test is
-tighter: atol 1e-4 + rtol 1e-2 in bfloat16 (one output rounding step,
-2^-7 of the value), 1e-4 in float32, as chip_smoke.py's ``K5_TOL``.
+the CPU), and the rule that picks the bf16 kernel (``pick_variant``: the
+``narrow`` kernel up to C 64, the ``wide`` one above) and the checks of
+``launch`` are tested here. The kernels themselves are held to that plain
+version by the ``cuda``-marked tests, which skip on a host without a CUDA
+device. Both accumulate in float32 and differ only in summation order, so
+those tests are tighter: atol 1e-4 + rtol 1e-2 in bfloat16 (one output
+rounding step, 2^-7 of the value), 1e-4 in float32, as chip_smoke.py's
+``K5_TOL``.
 """
 import jax
 import jax.experimental
@@ -98,6 +101,54 @@ def test_wrapper_on_cpu_runs_plain_and_checks_shapes():
             k5.moe_gemm(bad_x, bad_w)
 
 
+@pytest.mark.parametrize("C,variant", [
+    (1, "narrow"), (8, "narrow"), (9, "narrow"), (37, "narrow"),
+    (64, "narrow"), (65, "wide"), (80, "wide"), (2560, "wide")])
+def test_pick_variant_splits_at_narrow_max_c(C, variant):
+    assert k5.NARROW_MAX_C == 64
+    assert k5.pick_variant(C) == variant
+
+
+def test_launch_checks_variant_before_device():
+    x, w = (to_tensor(a) for a in _inputs(4, 2, 5, 16, 24))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    x65 = torch.zeros((2, 65, 16), dtype=torch.bfloat16)
+    for args in ((xb, wb, "tiled"),      # no such variant
+                 (x, w, "wide"),         # float32 runs on f32 only
+                 (xb, wb, "f32"),        # ...and bf16 on wide or narrow
+                 (x65, wb, "narrow"),    # narrow takes C <= 64
+                 (xb, wb, "narrow"),     # a sound call, but CPU tensors
+                 (x, w, "f32")):
+        with pytest.raises(ValueError):
+            k5.launch(*args)
+
+
+def test_counts_start_at_zero_and_cpu_does_not_count():
+    k5.reset_counts()
+    assert k5.moe_gemm.launches == 0
+    assert k5.moe_gemm.variant_launches == {"f32": 0, "wide": 0,
+                                            "narrow": 0}
+    x, w = (to_tensor(a) for a in _inputs(5, 2, 70, 16, 24))
+    k5.moe_gemm(x.bfloat16(), w.bfloat16())
+    k5.moe_gemm(x[:, :8], w)
+    assert k5.moe_gemm.launches == 0
+    assert sum(k5.moe_gemm.variant_launches.values()) == 0
+
+
+def _card_inputs(E, C, d, f, dtype, seed=3):
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((E, C, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, d, f), dtype=np.float32)
+                         / np.sqrt(d, dtype=np.float32))
+    return x.to(dev, dtype), w.to(dev, dtype)
+
+
+def _card_tol(dtype):
+    return (dict(atol=1e-4, rtol=1e-2) if dtype == torch.bfloat16
+            else dict(atol=1e-4, rtol=1e-4))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,C,d,f", [
@@ -105,21 +156,40 @@ def test_wrapper_on_cpu_runs_plain_and_checks_shapes():
     (4, 8, 6144, 256),     # mixtral decode: C 8, d 6144
     (3, 37, 72, 40),       # d and f not multiples of the tiles
     (2, 1, 8, 8),          # one row, one 8-wide step
+    (4, 64, 512, 384),     # the largest C of the narrow kernel
+    (4, 65, 512, 384),     # the smallest C of the wide kernel
+    (3, 300, 1000, 512),   # d 1000: not a multiple of a stage (wide)
+    (3, 5, 1000, 512),     # ... (narrow)
+    (3, 300, 512, 1032),   # f 1032: a ragged last f tile (wide)
+    (3, 5, 512, 1032),     # ... (narrow)
+    (1, 200, 512, 384),    # E 1 (wide)
+    (1, 8, 512, 384),      # E 1 (narrow)
 ])
 def test_kernel_matches_plain_on_card(E, C, d, f, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda:0")
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((E, C, d), dtype=np.float32))
-    w = torch.from_numpy(rng.standard_normal((E, d, f), dtype=np.float32)
-                         / np.sqrt(d, dtype=np.float32))
-    x, w = x.to(dev, dtype), w.to(dev, dtype)
+    x, w = _card_inputs(E, C, d, f, dtype)
+    variant = "f32" if dtype == torch.float32 else k5.pick_variant(C)
     n0 = k5.moe_gemm.launches
+    v0 = k5.moe_gemm.variant_launches[variant]
     got = k5.moe_gemm(x, w)
     torch.cuda.synchronize()
     assert k5.moe_gemm.launches == n0 + 1
+    assert k5.moe_gemm.variant_launches[variant] == v0 + 1
     want = k5.moe_gemm_plain(x, w)
-    tol = (dict(atol=1e-4, rtol=1e-2) if dtype == torch.bfloat16
-           else dict(atol=1e-4, rtol=1e-4))
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), want.float(), **_card_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["narrow", "wide"])
+@pytest.mark.parametrize("C", [1, 8, 13, 37, 64])
+def test_both_bf16_kernels_match_plain_on_card(C, variant):
+    """Where both bf16 kernels take C, each one, named, agrees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w = _card_inputs(3, C, 1000, 1032, torch.bfloat16, seed=6)
+    got = k5.launch(x, w, variant)
+    torch.cuda.synchronize()
+    want = k5.moe_gemm_plain(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_card_tol(torch.bfloat16))
