@@ -5,12 +5,12 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs ten phases, each printing
+source, all started together) and then runs eleven phases, each printing
 JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, the kernels' build time and the compiler's register
-   report.
+   report (a kernel that spills registers fails the run).
 2. ``kernel`` — K1 ``piece_window`` and K2 ``forecast_z`` on the card at
    the main path's full window (2^20 rows × 64 steps), a ragged 70 000 ×
    12 and 1 × 1, held to their plain PyTorch versions on the card and to
@@ -36,10 +36,13 @@ JSON lines:
    dh 128, in the [B, S, H, dh] layout the model passes, bf16 and f32),
    GQA 2:1 at dh 64, dh 80 with KV = H, a sliding window of 1024, S < Sk,
    a ragged S = 1000, non-causal, the mixtral-8x22b prefill shape (H 48,
-   KV 8, window 4096), and three small ragged cases (a
-   non-causal 33 × 77, S = Sk = 1, a window of 16 at S = 70). At the
-   llama shape: K3, plain and ``scaled_dot_product_attention`` ms over
-   CUDA events, and the bound.
+   KV 8, window 4096), the kimi-k2 prefill shape (H 64, KV 8, dh 112), a
+   ragged S 1000 at dh 112, dh 32, dh 80 non-causal at S 513, and three
+   small ragged cases (a non-causal 33 × 77, S = Sk = 1, a window of 16 at
+   S = 70). At the llama, mixtral and kimi shapes (``K3_TIMED``): K3, plain
+   and ``scaled_dot_product_attention`` ms over CUDA events, the bound,
+   TFLOP/s, and in bf16 the floor of the work K3 issues (P V on both parts
+   of P, the diagonal tiles whole).
 6. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. The launch counts are set to 0 just before
@@ -103,6 +106,16 @@ JSON lines:
    published factor the two prefills group, and so drop, differently);
    and the K5 route against the einsum route, whole model, in float32 on
    a 2-layer full-width copy of the same weights, within ``MOE_F32_TOL``.
+11. ``kimi`` — kimi-k2-1t-a32b at full width and 1 of its 61 layers in bf16
+   on ``cuda:0`` through ``load_model`` and ``generate``: batch 4, prompt
+   2048, 4 greedy tokens. K3's and K5's counts are set to 0 just before
+   this run and read just after (K3 at dh 112: one launch per prefill
+   layer; K5 three per layer and step). Then the last-position logits of
+   the K3/K5 route against the einsum route on the same weights, within
+   ``LOGIT_TOL``.
+
+Every logit, state and oracle output these phases compare must be
+finite, on each route, and a NaN in any layer's comparison fails it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -111,9 +124,9 @@ a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``k3`` (5), ``model`` (6), ``k4`` (7), ``rwkv`` (8),
-``k5`` (9) and ``moe`` (10), after ``env``, and then stops without the
-closing lines: ``--phases k3``, ``k4`` or ``k5`` is the quick check of a
-new K3, K4 or K5 build.
+``k5`` (9), ``moe`` (10) and ``kimi`` (11), after ``env``, and then stops
+without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is the quick
+check of a new K3, K4 or K5 build.
 """
 from __future__ import annotations
 
@@ -159,6 +172,26 @@ LOGIT_TOL = 0.04
 # slot left unwritten reads 1 (PERF.md, PR 12).
 CACHE_TOL = 0.25
 LLAMA = dict(arch="llama3.2-3b", batch=4, prompt=2048, gen=16)
+K3_CASES = [  # name, B, H, KV, S, Sk, dh, causal, window
+    ("llama3.2-3b prefill", 4, 32, 8, 2048, 2048, 128, True, 0),
+    ("GQA 2:1, dh 64", 2, 16, 8, 1024, 1024, 64, True, 0),
+    ("dh 80, KV = H", 2, 32, 32, 512, 512, 80, True, 0),
+    ("sliding window 1024", 2, 32, 8, 2048, 2048, 128, True, 1024),
+    ("S < Sk", 2, 32, 8, 512, 2048, 128, True, 0),
+    ("ragged S", 2, 32, 8, 1000, 1000, 128, True, 0),
+    ("non-causal", 2, 16, 8, 1024, 1024, 64, False, 0),
+    ("mixtral-8x22b prefill", 4, 48, 8, 2048, 2048, 128, True, 4096),
+    ("kimi-k2 prefill", 4, 64, 8, 2048, 2048, 112, True, 0),
+    ("ragged S 1000, dh 112", 2, 64, 8, 1000, 1000, 112, True, 0),
+    ("dh 32", 2, 4, 4, 300, 300, 32, True, 0),
+    ("dh 80 non-causal, S 513", 2, 32, 32, 513, 513, 80, False, 0),
+    ("non-causal 33 x 77, dh 80", 1, 4, 2, 33, 77, 80, False, 0),
+    ("S = Sk = 1", 1, 4, 2, 1, 1, 64, True, 0),
+    ("window 16, S 70", 3, 6, 3, 70, 70, 80, True, 16),
+]
+# the K3 cases timed against SDPA (the attention shapes of the three
+# prefills the script runs); the first is the kernels line's
+K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill")
 # K4 against its plain version, element by element, for the output and the
 # final state: |got - want| <= atol + rtol * |want|. Both run the same
 # float32 recurrence; they differ only in summation order and fused
@@ -195,17 +228,21 @@ MOE_ORACLE_TOL = 0.05
 MOE_F32_TOL = 1e-3
 MIXTRAL = dict(arch="mixtral-8x22b", n_layers=8, batch=4, prompt=2048,
                gen=16)
+# kimi-k2-1t-a32b at full width, 1 of its 61 layers: 384 experts are 33.8
+# GB a layer, the embedding and head 4.7 GB
+KIMI = dict(arch="kimi-k2-1t-a32b", n_layers=1, batch=4, prompt=2048, gen=4)
 PHASES = ("kernels", "ops", "main_path", "k3", "model", "k4", "rwkv", "k5",
-          "moe")
+          "moe", "kimi")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
 def smoke_config(arch):
     """``arch``'s full-width config at the depth this script runs it: the
-    registry's, cut where its run (LLAMA, RWKV, MIXTRAL) names a depth."""
+    registry's, cut where its run (LLAMA, RWKV, MIXTRAL, KIMI) names a
+    depth."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL)}.get(arch, {})
+    run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL, KIMI)}.get(arch, {})
     return dataclasses.replace(cfg,
                                n_layers=run.get("n_layers", cfg.n_layers))
 
@@ -253,6 +290,11 @@ def host_ms(torch, fn, iters=3):
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def all_finite(torch, *tensors):
+    """Whether every value of every tensor is finite."""
+    return all(bool(torch.isfinite(x).all()) for x in tensors)
 
 
 # --------------------------------------------------------------------------
@@ -497,23 +539,10 @@ def check_flash_attention(torch):
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(torch.device("cuda:0")).manual_seed(3)
-    cases = [  # B, H, KV, S, Sk, dh, causal, window
-        ("llama3.2-3b prefill", 4, 32, 8, 2048, 2048, 128, True, 0),
-        ("GQA 2:1, dh 64", 2, 16, 8, 1024, 1024, 64, True, 0),
-        ("dh 80, KV = H", 2, 32, 32, 512, 512, 80, True, 0),
-        ("sliding window 1024", 2, 32, 8, 2048, 2048, 128, True, 1024),
-        ("S < Sk", 2, 32, 8, 512, 2048, 128, True, 0),
-        ("ragged S", 2, 32, 8, 1000, 1000, 128, True, 0),
-        ("non-causal", 2, 16, 8, 1024, 1024, 64, False, 0),
-        ("mixtral-8x22b prefill", 4, 48, 8, 2048, 2048, 128, True, 4096),
-        ("non-causal 33 x 77, dh 80", 1, 4, 2, 33, 77, 80, False, 0),
-        ("S = Sk = 1", 1, 4, 2, 1, 1, 64, True, 0),
-        ("window 16, S 70", 3, 6, 3, 70, 70, 80, True, 16),
-    ]
-    llama = {}
+    timed, bad = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol = ATTN_TOL[str(dtype)]
-        for name, B, H, KV, S, Sk, dh, causal, window in cases:
+        for name, B, H, KV, S, Sk, dh, causal, window in K3_CASES:
             q, k, v = attn_case(torch, gen, B, H, KV, S, Sk, dh, dtype)
             n0 = fa.flash_attention.launches
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -531,34 +560,68 @@ def check_flash_attention(torch):
                         err_over_limit=ratio,
                         rms_out=float(want.float().pow(2).mean().sqrt()))
             ok = ratio <= 1.0
-            if name == "llama3.2-3b prefill":
+            if name in K3_TIMED:
                 flops = 4 * B * H * S * Sk * dh / (2 if causal else 1)
                 nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
                     * q.element_size()
                 peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
                 op_ms = 1e3 * flops / peak
                 byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+                # the causal cases' windows (mixtral's 4096) cover all of S:
+                # SDPA's causal mask computes the same function
+                require(not causal or window == 0 or window >= Sk,
+                        f"{name}: SDPA has no window")
                 lib = F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
                 line.update(
                     ms=cuda_ms(torch, lambda: fa.flash_attention(
                         q, k, v, causal=causal, window=window), 10),
                     plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
                         q, k, v, causal=causal, window=window), 3),
                     library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, enable_gqa=True), 10),
+                        q, k, v, is_causal=causal, enable_gqa=True), 10),
                     library_max_abs_err=float(
                         (lib.float() - want.float()).abs().max()),
                     flops=flops, bytes=nbytes, bound_ms=max(op_ms, byte_ms),
                     bound_by="operations" if op_ms >= byte_ms else "bytes")
-                llama[str(dtype)] = line
+                line["tflops"] = flops / line["ms"] / 1e9
+                line["bound_share"] = line["bound_ms"] / line["ms"]
+                line["k3_over_library"] = line["ms"] / line["library_ms"]
+                if dtype == torch.bfloat16:
+                    # what the bf16 kernel issues: Q K^T and P V on both
+                    # parts of P over every key tile it visits
+                    issued = k3_issued_flops(B, H, S, Sk, dh, causal, window)
+                    line.update(issued_flops=issued,
+                                issued_floor_ms=1e3 * issued / BF16_FLOPS,
+                                issued_tflops=issued / line["ms"] / 1e9)
+                timed[(name, str(dtype))] = line
                 del lib
             emit("kernel", **line)
-            require(ok, f"K3 != plain: {name} {dtype}, max_abs_err {err}, "
-                    f"{ratio} x the limit")
+            if not ok:  # NaN fails too
+                bad.append(f"{name} {dtype}: max_abs_err {err}, {ratio} x "
+                           "the limit")
             del q, k, v, out, want, diff
             torch.cuda.empty_cache()
-    return llama
+    # every case runs and reports before a failure stops the phase
+    require(not bad, f"K3 != plain: {bad}")
+    return timed
+
+
+def k3_issued_flops(B, H, S, Sk, dh, causal, window, tile=128):
+    """Tensor-core FLOPs the bf16 K3 issues: per visited tile of 128
+    queries x 128 keys, Q K^T over dh and P V twice (P's hi and lo parts).
+    The tiles it visits are those of its walk (csrc/flash_attention.cu,
+    Item): up to the causal frontier, from the window's first key."""
+    tiles = 0
+    for q0 in range(0, S, tile):
+        first, last = 0, (Sk - 1) // tile
+        if causal:
+            q_lo = q0 + Sk - S
+            last = min(last, (min(q0 + tile, S) - 1 + Sk - S) // tile)
+            if window > 0 and q_lo - window + 1 > 0:
+                first = (q_lo - window + 1) // tile
+        tiles += last - first + 1
+    return 3 * 2 * B * H * tiles * tile * tile * dh
 
 
 # --------------------------------------------------------------------------
@@ -633,6 +696,7 @@ def run_model(torch):
         model.use_kernels = True
         t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
         route = logits_agree(torch, out["logits"], ein)
+        finite_einsum = all_finite(torch, ein)
         del ein
         # the cache: decode_step after prefill(S - 1) against prefill(S)
         _, cache = model.prefill(prompts[:, :-1], P)
@@ -652,11 +716,12 @@ def run_model(torch):
         decode_tok_per_s=(gen - 1) * B / out["decode_s"],
         prefill_ms_k3_route=t_k, prefill_ms_einsum_route=t_e,
         k3_launches=launches, max_memory_allocated=peak,
-        logits_finite=finite, k3_vs_einsum=route, decode_vs_prefill=decode,
+        logits_finite=finite, logits_finite_einsum=finite_einsum,
+        k3_vs_einsum=route, decode_vs_prefill=decode,
         cache_vs_prefill=kv,
         sample=tokens[0].tolist())
     emit("model", **result)
-    require(finite, "non-finite logits")
+    require(finite and finite_einsum, "non-finite logits")
     require(tokens.shape == (B, gen), f"generated {tokens.shape}")
     require(launches == cfg.n_layers,
             f"K3 launched {launches} times in one prefill, want "
@@ -768,7 +833,8 @@ def state_agree(torch, a, b, rel_tol):
         x, y = getattr(a, name).float(), getattr(b, name).float()
         per_layer = [float((x[i] - y[i]).abs().max() / y[i].abs().max())
                      for i in range(x.shape[0])]
-        out[name] = {"max": max(per_layer), "per_layer": per_layer}
+        out[name] = {"max": float(np.max(per_layer)),  # a NaN is kept
+                     "per_layer": per_layer}
     out["ok"] = rel_tol is None or all(out[n]["max"] <= rel_tol
                                        for n in ("S", "shift", "shift_cm"))
     return out
@@ -805,6 +871,8 @@ def run_rwkv(torch):
             torch, model, prompts, P + gen)
         route = logits_agree(torch, kern, plain, RWKV_ROUTE_TOL)
         route_state = state_agree(torch, kern_st, plain_st, None)
+        # both routes' logits and final states
+        finite_routes = all_finite(torch, kern, plain, *kern_st, *plain_st)
         del plain, plain_st, kern, kern_st
         # the state: decode_step after prefill(S - 1) against prefill(S)
         _, state = model.prefill(prompts[:, :-1], P)
@@ -823,6 +891,7 @@ def run_rwkv(torch):
             torch, m32, prompts, P + gen)
         route32 = logits_agree(torch, kern, plain, RWKV_F32_TOL)
         route32_state = state_agree(torch, kern_st, plain_st, RWKV_F32_TOL)
+        finite_routes32 = all_finite(torch, kern, plain, *kern_st, *plain_st)
         del m32, plain, plain_st, kern, kern_st
     n_params = sum(p.numel() for p in model.parameters())
     result = dict(
@@ -834,13 +903,16 @@ def run_rwkv(torch):
         decode_tok_per_s=(gen - 1) * B / out["decode_s"],
         prefill_ms_k4_route=t_k, prefill_ms_plain_route=t_p,
         k4_launches=launches, max_memory_allocated=peak,
-        logits_finite=finite, k4_vs_plain=route,
+        logits_finite=finite, routes_finite=[finite_routes, finite_routes32],
+        k4_vs_plain=route,
         k4_vs_plain_state=route_state, decode_vs_prefill=decode,
         state_vs_prefill=st, f32_prefill_ms_k4_route=t_k32,
         f32_prefill_ms_plain_route=t_p32, f32_k4_vs_plain=route32,
         f32_k4_vs_plain_state=route32_state, sample=tokens[0].tolist())
     emit("rwkv", **result)
     require(finite, "non-finite logits")
+    require(finite_routes and finite_routes32,
+            "non-finite logits or final state on the K4 or plain route")
     require(tokens.shape == (B, gen), f"generated {tokens.shape}")
     require(launches == cfg.n_layers,
             f"K4 launched {launches} times in one prefill, want "
@@ -1086,8 +1158,10 @@ def run_moe(torch):
             del yk, ye
             ya, aux_all = moe_mod.moe_ffn(blk.moe, h, cfg_all,
                                           use_kernels=True)
-            oracle = rel_max(ya, moe_oracle(torch, blk.moe, h, cfg))
+            want = moe_oracle(torch, blk.moe, h, cfg)
+            oracle = rel_max(ya, want)
             per_layer.append({"route": route, "oracle": oracle,
+                              "oracle_finite": all_finite(torch, want),
                               "dropped": float(aux["dropped"]),
                               "lb_loss": float(aux["lb_loss"]),
                               "dropped_no_drop_cf": float(aux_all["dropped"])})
@@ -1103,6 +1177,7 @@ def run_moe(torch):
         model.use_kernels = True
         t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
         route_bf16 = logits_agree(torch, out["logits"], ein, float("inf"))
+        finite_einsum = all_finite(torch, ein)
         del ein
 
         # decode_step after prefill(S - 1) against prefill(S), and its
@@ -1136,11 +1211,13 @@ def run_moe(torch):
         t_k32 = host_ms(torch, lambda: m32.prefill(prompts, P + gen), 1)
         k32, _ = m32.prefill(prompts, P + gen)
         route32 = logits_agree(torch, k32, ein32, MOE_F32_TOL)
+        finite32 = all_finite(torch, k32, ein32)
         del m32, ein32, k32
         torch.cuda.empty_cache()
 
-    worst = {k: max(layer[k] for layer in per_layer)
+    worst = {k: float(np.max([layer[k] for layer in per_layer]))  # NaN kept
              for k in ("route", "oracle", "dropped_no_drop_cf")}
+    oracle_finite = all(layer["oracle_finite"] for layer in per_layer)
     result = dict(
         arch=cfg.name, n_layers=L, n_layers_published=56, batch=B, prompt=P,
         gen=gen, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
@@ -1155,6 +1232,8 @@ def run_moe(torch):
         k5_launches=launches["moe_gemm"], k5_variant_launches=k5_variants,
         k3_launches=launches["flash_attention"], **per,
         max_memory_allocated=peak, logits_finite=finite,
+        logits_finite_einsum_f32=[finite_einsum, finite32],
+        oracle_finite=oracle_finite,
         dropped_share_published_cf=sum(x["dropped"] for x in per_layer) / L,
         capacity_factor=cfg.capacity_factor,
         no_drop_capacity_factor=cfg_all.capacity_factor,
@@ -1164,7 +1243,9 @@ def run_moe(torch):
         f32_prefill_ms_k5_route=t_k32, f32_prefill_ms_einsum_route=t_e32,
         f32_k5_vs_einsum=route32, sample=tokens[0].tolist())
     emit("moe", **result)
-    require(finite, "non-finite logits")
+    require(finite and finite_einsum and finite32,
+            "non-finite logits on the K5 or einsum route")
+    require(oracle_finite, "non-finite float32 oracle output")
     require(tokens.shape == (B, gen), f"generated {tokens.shape}")
     require(launches["moe_gemm"] == 3 * L * gen,
             f"K5 launched {launches['moe_gemm']} times in one generate, "
@@ -1189,6 +1270,80 @@ def run_moe(torch):
     require(decode["ok"], f"decode_step != prefill: {decode}")
     require(kv["ok"], f"decode_step's cache != prefill's: {kv}")
     require(route32["ok"], f"K5 route != einsum route in float32: {route32}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 11: kimi-k2-1t-a32b inference (d_head 112 on K3)
+
+
+def run_kimi(torch):
+    """kimi-k2-1t-a32b at full width, cut to KIMI's depth, on the demo's
+    ``load_model`` and ``generate``; K3 (dh 112, GQA 8:1) once per prefill
+    layer; the K3/K5 route against the einsum route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as k5
+    from repro_torch.launch import inference_demo as demo
+
+    dev = torch.device("cuda:0")
+    B, P, gen = KIMI["batch"], KIMI["prompt"], KIMI["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(smoke_config(KIMI["arch"]), False, 0, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        L = cfg.n_layers
+        require(model.use_kernels, "the demo's model is not on K3/K5")
+        prompts = demo.make_prompts(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :256], 2)       # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        k5.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen)
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "moe_gemm": k5.moe_gemm.launches}
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = all_finite(torch, out["logits"])
+
+        # the same weights on the einsum route
+        model.use_kernels = False
+        t_e = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        ein, _ = model.prefill(prompts, P + gen)
+        model.use_kernels = True
+        t_k = host_ms(torch, lambda: model.prefill(prompts, P + gen), 1)
+        route = logits_agree(torch, out["logits"], ein)
+        finite_einsum = all_finite(torch, ein)
+        del ein
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        arch=cfg.name, n_layers=L, n_layers_published=61, batch=B, prompt=P,
+        gen=gen, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        d_head=cfg.d_head, experts=[cfg.n_experts, cfg.top_k,
+                                    cfg.n_shared_experts],
+        moe_d_ff=cfg.moe_d_ff, vocab=cfg.vocab, dtype=str(cfg.dtype),
+        params=n_params, init_s=init_s, prefill_ms=1e3 * out["prefill_s"],
+        decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        prefill_ms_kernel_route=t_k, prefill_ms_einsum_route=t_e,
+        k3_launches=launches["flash_attention"],
+        k5_launches=launches["moe_gemm"], max_memory_allocated=peak,
+        logits_finite=[finite, finite_einsum], k3_vs_einsum=route,
+        sample=tokens[0].tolist())
+    emit("kimi", **result)
+    del model
+    torch.cuda.empty_cache()
+    require(finite and finite_einsum, "non-finite logits")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches["flash_attention"] == L,
+            f"K3 launched {launches['flash_attention']} times in one "
+            f"prefill, want {L}")
+    require(launches["moe_gemm"] == 3 * L * gen,
+            f"K5 launched {launches['moe_gemm']} times, want {3 * L * gen}")
+    require(route["ok"], f"K3/K5 route != einsum route: {route}")
     return result
 
 
@@ -1317,10 +1472,15 @@ def main(argv=None) -> int:
         log = so.with_suffix(".log")
         ptxas[so.name] = [ln for ln in log.read_text().splitlines()
                           if "registers" in ln or "spill" in ln
-                          or "Compiling" in ln] if log.exists() else None
+                          or "Compiling" in ln or "arning" in ln
+                          ] if log.exists() else None
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
+    spills = [ln for lines in ptxas.values() for ln in lines or ()
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads"
+              not in ln]
+    require(not spills, f"a kernel spills registers: {spills}")
     # float32 products in full float32 on the card, as in the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1351,9 +1511,11 @@ def main(argv=None) -> int:
         gemm = check_moe_gemm(torch)
     if "moe" in phases:
         moe = run_moe(torch)
+    if "kimi" in phases:
+        run_kimi(torch)
     if set(phases) != set(PHASES):
         return 0
-    kern["flash_attention"] = attn["torch.bfloat16"]
+    kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]
     launches["flash_attention"] = model["k3_launches"]
     kern["rwkv_scan"] = scan
     launches["rwkv_scan"] = rwkv["k4_launches"]

@@ -1,9 +1,9 @@
 """kimi-k2-1t-a32b [moe] — trillion-param MoE: 384 experts, top-8, one
 shared expert, moe_ff=2048. [arXiv:2501.kimi2 — paper-table entry]
 
-The reference's config. d_head = 7168/64 = 112, which K3 does not take
-(64/80/128): the full-width model's prefill attention raises on the card;
-its reduced config (d_head 64) runs everywhere.
+The reference's config. d_head = 7168/64 = 112, which K3 takes (as it
+takes every d_head of the repo's configs), so the full-width model's
+prefill attention runs on K3 on the card; its reduced config has d_head 64.
 """
 import dataclasses
 

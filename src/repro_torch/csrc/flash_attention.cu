@@ -7,58 +7,79 @@
 //   Queries are aligned to the end of the keys (q_offset = Sk - S); the
 //   causal mask keeps kpos <= qpos, a window w > 0 also kpos > qpos - w.
 //   Scores, the running max, the denominator (floored at 1e-30) and the
-//   accumulator are float32; the output is in the input's type.
+//   accumulator are float32; the output is in the input's type. Like the
+//   Pallas kernel it takes any head dim the repo's configs use: dh 32, 64,
+//   80, 112 and 128.
 //
 // Contract: equal to the plain PyTorch version
 // (repro_torch.kernels.flash_attention.flash_attention_plain) up to float32
 // summation order, for bfloat16 inputs too: there the softmax weights P
 // enter the P V product on the tensor cores as two bfloat16 parts,
-// P = hi + lo, so P keeps about 16 significant bits (a relative 2^-17)
+// P = hi + lo, so P keeps about 16 significant bits (a relative 2^-16)
 // and the output differs from the plain version's by at most one bfloat16
-// rounding step. Masked scores are the finite -1e30, as in the
-// reference: a row with no valid key in a tile that still runs gets exp(0)
-// there, and the next tile with a valid key zeroes it through
-// alpha = exp(-1e30 - m). With -inf that tile would give NaN.
+// rounding step. The bf16 kernel takes exp in base 2 (ex2.approx, relative
+// error about 2^-22) with scale * log2(e) folded into the scores. Masked
+// scores are the finite -1e30, as in the reference: a row with no valid
+// key in a tile that still runs gets exp(0) there, and the next tile with
+// a valid key zeroes it through alpha = exp(-1e30 - m). With -inf that
+// tile would give NaN.
 //
 // What bounds it on an H100: operations. At the llama3.2-3b prefill shape
-// (B 4, H 32, KV 8, S = Sk = 2048, dh 128, causal) it does 137 GFLOP
-// against 0.17 GB of inputs and output.
+// (B 4, H 32, KV 8, S = Sk = 2048, dh 128, causal) the function is 137
+// GFLOP against 0.17 GB of inputs and output; the bf16 kernel issues 1.5x
+// that on the tensor cores (P V runs on both parts of P), and the diagonal
+// tiles add 136/128.
 //
-// Design. One block per (query tile of 64 rows, head, batch), the query
-// tiles with the most key tiles first. The block stages its Q tile once,
-// then walks the key tiles of 64 keys in order over the range the mask
-// leaves (the tiles it removes wholly, flash_attention.py:44-51, are never
-// visited); each tile is staged in shared memory, scored, masked where the
-// tile has a masked pair, folded into the running max/sum/accumulator
-// (online softmax), and dropped. The ragged S and Sk edges are masked:
-// rows past S are computed on zeros and not stored, keys past Sk are
-// masked and their K/V rows are zero.
-//
-// * bfloat16 (the model's path): 4 warps, each owning 16 query rows, on
-//   the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The
-//   warp keeps its Q fragments in registers, takes K fragments from shared
-//   memory with 32-bit loads and V fragments with ldmatrix.trans, and
-//   reuses the S accumulator layout as the A operand of P V, so P never
-//   goes through shared memory; P V is issued twice, on P's high and low
-//   bfloat16 parts (V is bfloat16 already, so nothing else rounds). K/V tiles are bf16 in two shared-memory
-//   buffers (70 KB at dh 128): cp.async streams the next tile in while the
-//   warps compute on this one. Rows are padded by 8 elements so that no
-//   fragment load has a bank conflict.
+// * bfloat16 (the model's path): TMA + wgmma, warp-specialised and
+//   persistent. One block of 384 threads per SM walks work items (query
+//   tile of 128 rows, head, batch): the query tiles with the most key tiles
+//   first, and within one tile the heads that share a kv head next to each
+//   other, so that their K/V tiles come from L2. A producer warp (one
+//   thread) issues TMA loads through 4-D tensor maps (dh, S, heads, B)
+//   built from the wrapper's strides, so [B, S, H, dh] activations pass as
+//   views and TMA fills zeros past S, Sk and dh (dh is padded to 64 or
+//   128 in shared memory; rows are 64-column boxes with 128-byte swizzle).
+//   The item's Q tile is loaded once, behind q_full / q_empty mbarriers;
+//   K and V tiles of 128 keys go into a ring of stages, each with its own
+//   k_full and v_full barrier and one kv_empty barrier. Two consumer
+//   warpgroups each own 64 query rows. Per key tile a warpgroup runs
+//   S = Q K^T as wgmma m64n128k16 with both operands in shared memory
+//   (K-major), scales and masks S in registers (the causal frontier, the
+//   window edge and the Sk edge are evaluated only on the tiles that cross
+//   them; tiles the mask removes whole are never visited, as in the
+//   reference's block skip, flash_attention.py:44-51), does the online
+//   softmax in float32, splits P into hi and lo, and runs
+//   O += P_lo V + P_hi V as wgmma m64n{dh}k16 with A from registers (the
+//   S accumulator's layout is the A operand's) and V as the transposed
+//   (MN-major) B operand. Inside a warpgroup the products of two tiles
+//   overlap: S of tile j and P V of tile j - 1 are issued together, and
+//   tile j's softmax runs while P V of tile j - 1 does; the stage of tile
+//   j - 1 is freed when its P V has waited. setmaxnreg moves the
+//   producer's registers to the consumers (O, S and the two parts of P are
+//   192 a thread at dh 128). The epilogue divides by max(l, 1e-30) and
+//   stores bf16 pairs from registers, masked past S, while the producer
+//   loads the next item. Ping-pong between the warpgroups (named barriers
+//   taking turns to issue their products) was slower on the H100 and is
+//   not used (PERF.md).
 // * float32: 256 threads on the CUDA cores (no tensor-core rate would keep
 //   float32 accuracy). Each thread holds a 4 x 4 score tile and 4 rows x
 //   dh/16 columns of the accumulator in registers; K^T, V and P^T go
-//   through shared memory in float32 (87 KB at dh 128).
-//
-// Left for later: TMA loads, wgmma with a warp-specialised producer, and a
-// persistent grid.
+//   through shared memory in float32 (87 KB at dh 128). One block per
+//   (query tile of 64 rows, head, batch), the query tiles with the most key
+//   tiles first; the tiles the mask removes whole are skipped as above.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
+using namespace hopper;
+
+constexpr int kBQ = 64;  // float32: query rows per block
+constexpr int kBK = 64;  // float32: keys per tile
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -74,8 +95,8 @@ struct Params {
   float scale;
 };
 
-// The block's query tile and the range of key tiles it runs. Tiles outside
-// [first, last] are wholly masked (the block-level skip of
+// float32: the block's query tile and the range of key tiles it runs.
+// Tiles outside [first, last] are wholly masked (the block-level skip of
 // flash_attention.py:44-51): past the causal frontier, or wholly before
 // the window of every row. Query tiles go in reverse, so the blocks with
 // the most key tiles (causal) start first.
@@ -97,17 +118,11 @@ struct Walk {
       if (p.window > 0 && lo > 0) first = lo / kBK;
     }
   }
-  // whether some (row, key) of the tile is masked: the ragged key edge,
-  // a key after the tile's first row, or one before the last row's window
-  __device__ bool needs_mask(const Params& p, int k_lo) const {
-    if (k_lo + kBK > p.Sk) return true;
-    if (!p.causal) return false;
-    return k_lo + kBK - 1 > q_lo ||
-           (p.window > 0 && k_lo <= q_lo + kBQ - 1 - p.window);
-  }
 };
 
-__device__ __forceinline__ bool keep(const Params& p, int qpos, int kpos) {
+// whether query position qpos sees key kpos (P: Params or Rows)
+template <typename P>
+__device__ __forceinline__ bool keep(const P& p, int qpos, int kpos) {
   bool ok = kpos < p.Sk;
   if (p.causal) {
     ok = ok && kpos <= qpos;
@@ -117,197 +132,147 @@ __device__ __forceinline__ bool keep(const Params& p, int qpos, int kpos) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores, mma.sync m16n8k16
+// bfloat16: TMA + wgmma, warp-specialised, persistent
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kTQ = 128;         // query rows a work item (2 warpgroups x 64)
+constexpr int kTK = 128;         // keys a stage
+constexpr int kThreadsW = 384;   // producer warpgroup + 2 consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kMaxStages = 4;
+constexpr int kSmemMax = 232448;  // an H100 block's opt-in limit
+constexpr int kSmemExtra = 1024 + 256;  // alignment and the barriers
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Q, K and V tiles in shared memory: rows of 64 bf16 (128 bytes, 128B
+// swizzle) per box, dh padded to one or two boxes
+template <int DH>
+struct Tile {
+  static constexpr int kBoxes = DH <= 64 ? 1 : 2;
+  static constexpr int kQBox = kTQ * 128;  // bytes of one 64-column box
+  static constexpr int kKBox = kTK * 128;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKBox;  // K or V of a stage
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kFit = (kSmemMax - kQBytes - kSmemExtra) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes + kSmemExtra;
+};
+
+struct Dims {
+  void* o;
+  long long o_sb, o_sh, o_ss;  // output strides in elements
+  int B, H, S, Sk, group, causal, window, n_qt;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Work item w: query tile (the one with the most key tiles first), then
+// batch, then head fastest; and the key tiles [first, last] it runs (the
+// others are wholly masked: past the causal frontier, or wholly before the
+// window of every row).
+struct Item {
+  int b, h, q0, first, last;
+
+  __device__ Item(const Dims& p, int w) {
+    const int hb = p.H * p.B;
+    const int qt = p.n_qt - 1 - w / hb;
+    const int r = w % hb;
+    b = r / p.H;
+    h = r - b * p.H;
+    q0 = qt * kTQ;
+    const int q_lo = q0 + p.Sk - p.S;  // key-aligned position of row q0
+    const int q_hi = min(q0 + kTQ, p.S) - 1 + p.Sk - p.S;  // last real row
+    first = 0;
+    last = (p.Sk - 1) / kTK;
+    if (p.causal) {
+      last = min(last, q_hi / kTK);
+      const int lo = q_lo - p.window + 1;  // first key any row keeps
+      if (p.window > 0 && lo > 0) first = lo / kTK;
+    }
+  }
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i, and register i holds the fragment of matrix i
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// (x, y) as hi + lo, each a bf16 pair: hi = bf16(x, y), lo = bf16 of the rest
-__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
+// (x, y) as hi + lo, each a bf16 pair: hi = x, y truncated to bf16 (their
+// top 16 bits, a mask and a byte permute), lo = bf16 of the rest, which is
+// below 2^-7 of x, y; so hi + lo is within 2^-16 of x, y
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t xb = __float_as_uint(x) & 0xFFFF0000u;
+  const uint32_t yb = __float_as_uint(y) & 0xFFFF0000u;
+  hi = __byte_perm(xb, yb, 0x7632);
+  lo = pack_bf16(x - __uint_as_float(xb), y - __uint_as_float(yb));
 }
 
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// P = hi + lo in the A-operand order of the k16 steps of P V: register r
+// of step kk holds p[8 kk + 2 r], p[8 kk + 2 r + 1] (row r0 for even r,
+// r0 + 8 for odd r)
+__device__ __forceinline__ void to_p(const float (&p)[kTK / 2],
+                                     uint32_t (&phi)[kTK / 4],
+                                     uint32_t (&plo)[kTK / 4]) {
+#pragma unroll
+  for (int i = 0; i < kTK / 4; ++i)
+    split_bf16(p[2 * i], p[2 * i + 1], phi[i], plo[i]);
 }
 
-template <int DH>
-__host__ __device__ constexpr int mma_smem_bytes() {
-  return 4 * kBK * (DH + 8) * 2;  // two buffers of (K, V) in bf16
-}
+// One thread's two rows of a warpgroup's 64: the mask and the online
+// softmax of one key tile of scores in the accumulator layout (sc[4j],
+// sc[4j+1] at row r0, columns 8j + c0 + {0, 1}; sc[4j+2], sc[4j+3] at row
+// r0 + 8). A row's scores live on the 4 lanes of a quad.
+struct Rows {
+  int Sk, causal, window;  // the mask (read by keep)
+  float scale_log2;
+  int q_lo;   // key-aligned position of the warpgroup's first row
+  int qpos0;  // this thread's first row's
+  int c0;     // its first column in each 8
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+  __device__ Rows(const Dims& p, int q_lo_, int r0, int c0_)
+      : Sk(p.Sk), causal(p.causal), window(p.window),
+        scale_log2(p.scale_log2), q_lo(q_lo_), qpos0(q_lo_ + r0), c0(c0_) {}
 
-// Start copying rows row0.. of a [*, DH] bf16 matrix into a [64][DH + 8]
-// tile in 16-byte vectors; rows at or past `n_rows` (n_rows >= 1) are zero.
-template <int DH>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int row0,
-                                           int n_rows) {
-  constexpr int kVec = DH / 8;
-  for (int e = threadIdx.x; e < kBQ * kVec; e += kMmaThreads) {
-    const int r = e / kVec;
-    const int c = (e - r * kVec) * 8;
-    const bool ok = r < n_rows;
-    cp_async16(dst + r * (DH + 8) + c,
-               src + (long long)(row0 + (ok ? r : 0)) * stride + c, ok);
+  // whether some (row, key) of the 64 rows against keys k_lo.. is masked:
+  // the ragged key edge, a key after the first row, or one before the last
+  // row's window
+  __device__ bool needs_mask(int k_lo) const {
+    if (k_lo + kTK > Sk) return true;
+    if (!causal) return false;
+    return k_lo + kTK - 1 > q_lo ||
+           (window > 0 && k_lo <= q_lo + 63 - window);
   }
-}
 
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_mma_kernel(const Params p) {
-  constexpr int RS = DH + 8;  // row stride in shared memory (elements)
-  constexpr int KT = DH / 16;  // k-steps of Q K^T
-  constexpr int NT = DH / 8;   // n-tiles of the output
-  constexpr int ST = kBK / 8;  // n-tiles of the scores
-  constexpr int TILE = kBK * RS;
-  extern __shared__ float4 smem4[];
-  // two buffers of (K, V); Q passes through the second K before the walk
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // fragment column pair
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-  const Walk w(p);
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  stage_bf16<DH>(sm + 2 * TILE, q, p.q_ss, w.q0, p.S - w.q0);
-  cp_async_commit();
-  {
-    const int k_lo = w.first * kBK;
-    stage_bf16<DH>(sm, k, p.k_ss, k_lo, p.Sk - k_lo);
-    stage_bf16<DH>(sm + TILE, v, p.v_ss, k_lo, p.Sk - k_lo);
-    cp_async_commit();
-  }
-  cp_async_wait<1>();  // Q has arrived
-  __syncthreads();
-  // this warp's rows of Q as A fragments: a0 (g, 2t), a1 (g+8, 2t),
-  // a2 (g, 2t+8), a3 (g+8, 2t+8) of each 16 x 16 step
-  unsigned qf[KT][4];
-  {
-    const __nv_bfloat16* r0 = sm + 2 * TILE + (warp * 16 + g) * RS + 2 * t;
-    const __nv_bfloat16* r1 = r0 + 8 * RS;
+  // sc: raw scores -> P = 2^(sc * scale_log2 - m) (masked: 0, or 1 while a
+  // row has seen no valid key); m, l updated; alpha rescales what O holds
+  __device__ __forceinline__ void softmax(float (&sc)[kTK / 2], int k_lo,
+                                          float& m0, float& m1, float& l0,
+                                          float& l1, float& alpha0,
+                                          float& alpha1) const {
+    if (needs_mask(k_lo)) {
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      qf[kk][0] = ld32(r0 + kk * 16);
-      qf[kk][1] = ld32(r1 + kk * 16);
-      qf[kk][2] = ld32(r0 + kk * 16 + 8);
-      qf[kk][3] = ld32(r1 + kk * 16 + 8);
-    }
-  }
-  __syncthreads();  // Q is read: its buffer takes the next tile
-
-  // accumulator C fragments: c0, c1 at row g, c2, c3 at row g + 8
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  const int qpos0 = w.q_lo + warp * 16 + g;
-  const int qpos1 = qpos0 + 8;
-
-  for (int kj = w.first, it = 0; kj <= w.last; ++kj, ++it) {
-    const int k_lo = kj * kBK;
-    const __nv_bfloat16* sK = sm + (it & 1) * 2 * TILE;
-    const __nv_bfloat16* sV = sK + TILE;
-    if (kj < w.last) {  // the next tile streams in while this one computes
-      __nv_bfloat16* nK = sm + ((it + 1) & 1) * 2 * TILE;
-      stage_bf16<DH>(nK, k, p.k_ss, k_lo + kBK, p.Sk - k_lo - kBK);
-      stage_bf16<DH>(nK + TILE, v, p.v_ss, k_lo + kBK, p.Sk - k_lo - kBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T: B fragment (k 2t.., n g) is K[key g][d 2t..], contiguous
-    float s[ST][4];
-#pragma unroll
-    for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int j = 0; j < ST; ++j) {
-        const __nv_bfloat16* kr = sK + (j * 8 + g) * RS + kk * 16 + 2 * t;
-        mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale, mask (only where the tile has a masked pair) and online
-    // softmax; a row's scores live on the 4 lanes that share g
-    if (w.needs_mask(p, k_lo)) {
-#pragma unroll
-      for (int j = 0; j < ST; ++j)
+      for (int j = 0; j < kTK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-          s[j][e] = keep(p, e < 2 ? qpos0 : qpos1, kpos) ? s[j][e] * p.scale
-                                                         : kNegInf;
+          const int kpos = k_lo + 8 * j + c0 + (e & 1);
+          sc[4 * j + e] = keep(*this, qpos0 + 8 * (e >> 1), kpos)
+                              ? sc[4 * j + e] * scale_log2
+                              : kNegInf;
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < ST; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+      for (int i = 0; i < kTK / 2; ++i) sc[i] *= scale_log2;
     }
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    for (int j = 0; j < kTK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -316,73 +281,225 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     const float mn0 = fmaxf(m0, mx0);
     const float mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0);
-    const float alpha1 = expf(m1 - mn1);
+    alpha0 = ex2(m0 - mn0);
+    alpha1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    for (int j = 0; j < kTK / 8; ++j) {
+      sc[4 * j] = ex2(sc[4 * j] - mn0);
+      sc[4 * j + 1] = ex2(sc[4 * j + 1] - mn0);
+      sc[4 * j + 2] = ex2(sc[4 * j + 2] - mn1);
+      sc[4 * j + 3] = ex2(sc[4 * j + 3] - mn1);
+      sum0 += sc[4 * j] + sc[4 * j + 1];
+      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
     }
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
-    }
+  }
+};
 
-    // O += P V: the score tiles 2kk and 2kk+1 are the A fragment of keys
-    // 16kk..16kk+15, split into its high and low bf16 parts; V fragments
-    // by ldmatrix.trans, two n-tiles at a time, each used by both parts
+template <int DH>
+__global__ void __launch_bounds__(kThreadsW, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                                 const __grid_constant__ CUtensorMap tmap_k,
+                                 const __grid_constant__ CUtensorMap tmap_v,
+                                 const Dims p) {
+  using T = Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128B-swizzled tiles start on 1024-byte boundaries
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = smem;
+  auto sk = [&](int s) { return smem + T::kQBytes + s * T::kStageBytes; };
+  auto sv = [&](int s) { return sk(s) + T::kKVBytes; };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      smem + T::kQBytes + T::kStages * T::kStageBytes);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + T::kStages;
+  uint64_t* kv_empty = v_full + T::kStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);  // the producer's arrival + the TMA bytes
+    mbar_init(q_empty, kConsumerWarps);  // one arrival per consumer warp
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_work = p.n_qt * p.H * p.B;
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Item it(p, w);
+        const int kvh = it.h / p.group;
+        mbar_wait(q_empty, q_phase ^ 1);  // both warpgroups are past Q K^T
+        q_phase ^= 1;
+        mbar_arrive_expect_tx(q_full, T::kQBytes);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      unsigned hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-      const __nv_bfloat16* vr =
-          sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load_4d(sq + c * T::kQBox, &tmap_q, q_full, 64 * c, it.q0,
+                      it.h, it.b);
+        for (int kj = it.first; kj <= it.last; ++kj) {
+          mbar_wait(&kv_empty[s], phase ^ 1);
+          mbar_arrive_expect_tx(&k_full[s], T::kKVBytes);
 #pragma unroll
-      for (int nn = 0; nn < NT / 2; ++nn) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, vr + nn * 16);
-        mma_bf16(acc[2 * nn], lo, r[0], r[1]);
-        mma_bf16(acc[2 * nn + 1], lo, r[2], r[3]);
-        mma_bf16(acc[2 * nn], hi, r[0], r[1]);
-        mma_bf16(acc[2 * nn + 1], hi, r[2], r[3]);
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load_4d(sk(s) + c * T::kKBox, &tmap_k, &k_full[s], 64 * c,
+                        kj * kTK, kvh, it.b);
+          mbar_arrive_expect_tx(&v_full[s], T::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load_4d(sv(s) + c * T::kKBox, &tmap_v, &v_full[s], 64 * c,
+                        kj * kTK, kvh, it.b);
+          if (++s == T::kStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-    __syncthreads();  // this buffer is read: the next-but-one tile takes it
-  }
-
-  const int row0 = w.q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const float d0 = fmaxf(l0, 1e-30f);
-  const float d1 = fmaxf(l1, 1e-30f);
+  } else {
+    // consumer warpgroups 1 and 2: rows 64 (wg - 1).. of each query tile
+    regs_alloc<240>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+    const int c0 = 2 * (lane % 4);        // its columns in each 8: c0, c0 + 1
+    const uint8_t* qa = sq + wg * 64 * 128;  // the warpgroup's 64 rows of Q
+    // S = Q K^T of the stage's K tile, issued (not waited for)
+    auto issue_qk = [&](float (&sc)[kTK / 2], int st) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < p.S)
-      *reinterpret_cast<unsigned*>(o + (long long)row0 * p.o_ss + col) =
-          pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
-    if (row1 < p.S)
-      *reinterpret_cast<unsigned*>(o + (long long)row1 * p.o_ss + col) =
-          pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_bf16<0, 0>(
+            sc, desc_sw128(qa + (kk / 4) * T::kQBox + 32 * (kk % 4), 16, 1024),
+            desc_sw128(sk(st) + (kk / 4) * T::kKBox + 32 * (kk % 4), 16, 1024),
+            kk > 0);
+      wgmma_commit();
+    };
+    // O += P_lo V + P_hi V of the stage's V tile [keys, dh], MN-major
+    auto issue_pv = [&](float (&o)[DH / 2], uint32_t (&phi)[kTK / 4],
+                        uint32_t (&plo)[kTK / 4], int st) {
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk) {
+        const uint64_t dv = desc_sw128(sv(st) + 2048 * kk, T::kKBox, 1024);
+        wgmma_bf16_rs<1>(o, &plo[4 * kk], dv, 1);
+        wgmma_bf16_rs<1>(o, &phi[4 * kk], dv, 1);
+      }
+      wgmma_commit();
+    };
+    int s = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const Item it(p, w);
+      const int row_lo = it.q0 + 64 * wg;
+      const Rows rows(p, row_lo + p.Sk - p.S, r0, c0);
+      float o[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+      // running max in log2 units and this thread's part of the row sums
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+      float alpha0, alpha1;
+      uint32_t phi[kTK / 4], plo[kTK / 4];  // P of the previous key tile
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+
+      // the first key tile: S, softmax, P
+      {
+        float sc[kTK / 2];
+        mbar_wait(&k_full[s], phase);
+        wgmma_fence();
+        issue_qk(sc, s);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (it.first == it.last && lane == 0) mbar_arrive(q_empty);
+        rows.softmax(sc, it.first * kTK, m0, m1, l0, l1, alpha0, alpha1);
+        to_p(sc, phi, plo);
+      }
+      int s_prev = s;  // the stage of P's key tile
+      uint32_t phase_prev = phase;
+      if (++s == T::kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+      // each next tile: S of this tile and P V of the previous one in
+      // flight together; this tile's softmax runs while P V does
+      for (int kj = it.first + 1; kj <= it.last; ++kj) {
+        float sc[kTK / 2];
+        mbar_wait(&k_full[s], phase);
+        mbar_wait(&v_full[s_prev], phase_prev);
+        wgmma_fence();
+        issue_qk(sc, s);
+        issue_pv(o, phi, plo, s_prev);
+        wgmma_wait<1>();  // S has arrived
+        fence_regs(sc);
+        if (kj == it.last && lane == 0) mbar_arrive(q_empty);
+        rows.softmax(sc, kj * kTK, m0, m1, l0, l1, alpha0, alpha1);
+        wgmma_wait<0>();  // P V of the previous tile has too
+        fence_regs(o);
+        fence_regs(phi);
+        fence_regs(plo);
+        if (lane == 0) mbar_arrive(&kv_empty[s_prev]);  // its stage is read
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          o[4 * j] *= alpha0;
+          o[4 * j + 1] *= alpha0;
+          o[4 * j + 2] *= alpha1;
+          o[4 * j + 3] *= alpha1;
+        }
+        to_p(sc, phi, plo);
+        s_prev = s;
+        phase_prev = phase;
+        if (++s == T::kStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      // P V of the last tile
+      mbar_wait(&v_full[s_prev], phase_prev);
+      wgmma_fence();
+      issue_pv(o, phi, plo, s_prev);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(phi);
+      fence_regs(plo);
+      if (lane == 0) mbar_arrive(&kv_empty[s_prev]);
+
+      // O / max(l, 1e-30) in bf16 pairs, rows past S not stored
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float d0 = fmaxf(l0, 1e-30f);
+      const float d1 = fmaxf(l1, 1e-30f);
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) +
+                           it.b * p.o_sb + it.h * p.o_sh;
+      const int row0 = row_lo + r0;
+      const int row1 = row0 + 8;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const int col = 8 * j + c0;
+        if (row0 < p.S)
+          *reinterpret_cast<uint32_t*>(out + (long long)row0 * p.o_ss + col) =
+              pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+        if (row1 < p.S)
+          *reinterpret_cast<uint32_t*>(out + (long long)row1 * p.o_ss + col) =
+              pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      }
+    }
   }
 }
 
@@ -541,36 +658,98 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename Kernel>
-int launch(Kernel kernel, int threads, int bytes, const Params& p, int B,
-           int H, cudaStream_t stream) {
+constexpr int kErrNoEncoder = -1;  // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = -2;     // it refused a tensor map
+
+// A 4-D map (dh, rows, heads, B) over a bf16 tensor with a contiguous dh and
+// the given strides (elements), read in boxes of box_rows x 64 of dh with
+// 128-byte swizzle; what lies outside the tensor reads as zeros.
+int map_4d(CUtensorMap* m, const void* base, int dh, int rows, int heads,
+           int batch, long long s_row, long long s_head, long long s_batch,
+           int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <int DH>
+int launch_wgmma(const Params& a, int B, int H, int KV, cudaStream_t st) {
+  using T = Tile<DH>;
+  CUtensorMap tq, tk, tv;
+  int err = map_4d(&tq, a.q, DH, a.S, H, B, a.q_ss, a.q_sh, a.q_sb, kTQ);
+  if (err == 0)
+    err = map_4d(&tk, a.k, DH, a.Sk, KV, B, a.k_ss, a.k_sh, a.k_sb, kTK);
+  if (err == 0)
+    err = map_4d(&tv, a.v, DH, a.Sk, KV, B, a.v_ss, a.v_sh, a.v_sb, kTK);
+  if (err != 0) return err;
+  Dims p;
+  p.o = a.o;
+  p.o_sb = a.o_sb;
+  p.o_sh = a.o_sh;
+  p.o_ss = a.o_ss;
+  p.B = B;
+  p.H = H;
+  p.S = a.S;
+  p.Sk = a.Sk;
+  p.group = a.group;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.n_qt = (a.S + kTQ - 1) / kTQ;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  cudaError_t ce = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  int dev = 0, sms = 0;
+  if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const long long n_work = (long long)p.n_qt * H * B;
+  const int grid = n_work < sms ? (int)n_work : sms;
+  flash_attention_wgmma_kernel<DH>
+      <<<grid, kThreadsW, T::kSmemBytes, st>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(void (*kernel)(const Params), int bytes, const Params& p, int B,
+               int H, cudaStream_t stream) {
   // above 48 KB a block's shared memory must be opted in
   const cudaError_t opt_in = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid((p.S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, threads, bytes, stream>>>(p);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_dh(const Params& p, bool bf16, int B, int H, cudaStream_t stream) {
-  if (bf16)
-    return launch(flash_attention_mma_kernel<DH>, kMmaThreads,
-                  mma_smem_bytes<DH>(), p, B, H, stream);
-  return launch(flash_attention_f32_kernel<DH>, kThreads, f32_smem_bytes<DH>(),
-                p, B, H, stream);
+int launch_dh(const Params& p, bool bf16, int B, int H, int KV,
+              cudaStream_t stream) {
+  if (bf16) return launch_wgmma<DH>(p, B, H, KV, stream);
+  return launch_f32(flash_attention_f32_kernel<DH>, f32_smem_bytes<DH>(), p,
+                    B, H, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues one kernel on `stream` and returns cudaGetLastError().
-// dtype: 0 float32, 1 bfloat16; dh in {64, 80, 128}; S >= 1, Sk >= 1, and
-// Sk >= S when causal. Strides are in elements, the last dim contiguous;
-// for bfloat16 the pointers are 16-byte aligned and the strides multiples
-// of 8 (the tiles move in 16-byte vectors).
+// Enqueues one kernel on `stream` and returns 0 or an error code for
+// flash_attention_error_string. dtype: 0 float32, 1 bfloat16; dh in
+// {32, 64, 80, 112, 128}; S >= 1, Sk >= 1, and Sk >= S when causal.
+// Strides are in elements, the last dim contiguous; for bfloat16 the
+// pointers are 16-byte aligned and the strides multiples of 8 (TMA).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KV, int S,
                            int Sk, int dh, long long q_sb, long long q_sh,
@@ -598,14 +777,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const bool bf16 = dtype == 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 64: return launch_dh<64>(p, bf16, B, H, st);
-    case 80: return launch_dh<80>(p, bf16, B, H, st);
-    case 128: return launch_dh<128>(p, bf16, B, H, st);
+    case 32: return launch_dh<32>(p, bf16, B, H, KV, st);
+    case 64: return launch_dh<64>(p, bf16, B, H, KV, st);
+    case 80: return launch_dh<80>(p, bf16, B, H, KV, st);
+    case 112: return launch_dh<112>(p, bf16, B, H, KV, st);
+    case 128: return launch_dh<128>(p, bf16, B, H, KV, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 const char* flash_attention_error_string(int err) {
+  if (err == kErrNoEncoder)
+    return "libcuda has no cuTensorMapEncodeTiled";
+  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

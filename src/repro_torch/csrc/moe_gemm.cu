@@ -49,8 +49,8 @@
 // The 3-D tensor maps ([E, C, d] for x, [E, d, f] for w) make TMA fill
 // zeros past each expert's C, past d and past f, so no tile reads another
 // expert's rows. They are encoded on the host at every launch by
-// cuTensorMapEncodeTiled (libcuda), reached through cudaGetDriverEntryPoint
-// (no -lcuda), and passed as __grid_constant__ kernel parameters.
+// cuTensorMapEncodeTiled (libcuda; hopper.cuh's encode_tiled), and passed
+// as __grid_constant__ kernel parameters.
 //
 // * float32: 256 threads on the CUDA cores (no tensor-core rate would keep
 //   float32 accuracy), each holding a 4 x 4 part of a 64 x 64 tile; x^T
@@ -420,38 +420,12 @@ namespace {
 constexpr int kErrNoEncoder = -1;  // libcuda has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = -2;     // it refused a tensor map
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // A 3-D map over a contiguous bf16 tensor [outer][rows][inner], read in
 // boxes of box_rows x 64 inner elements with 128-byte swizzle; what lies
 // outside the tensor reads as zeros.
 int map_3d(CUtensorMap* m, const void* base, int inner, int rows, int outer,
            int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
+  const hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                               (cuuint64_t)outer};

@@ -32,7 +32,9 @@ from . import _build
 
 _SRC = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128)
+# every d_head of the repo's configs, full and reduced (the Pallas kernel
+# takes any dh)
+HEAD_DIMS = (32, 64, 80, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -91,7 +93,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     Returns [B, H, S, dh] in q's dtype. CPU tensors run
     :func:`flash_attention_plain`; CUDA tensors launch the kernel, which
     takes float32 (on the CUDA cores) or bfloat16 (on the tensor cores,
-    16-byte aligned), dh in {64, 80, 128}, and Sk >= S when causal."""
+    through TMA: 16-byte aligned, strides multiples of 8), dh in
+    ``HEAD_DIMS``, and Sk >= S when causal."""
     B, H, S, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if k.shape != (B, KV, Sk, dh) or v.shape != k.shape:
@@ -111,7 +114,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"the head dim of {name} must be contiguous")
-        # the bf16 kernel moves tiles in 16-byte vectors
+        # the bf16 kernel reads through TMA tensor maps: 16-byte aligned
+        # base and strides
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
             raise ValueError(f"bfloat16 {name} must be 16-byte aligned with "
@@ -131,7 +135,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
+        raise RuntimeError(f"flash_attention launch failed: error {err} "
                            f"({msg})")
     flash_attention.launches += 1
     return out

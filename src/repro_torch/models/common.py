@@ -144,8 +144,10 @@ class ModelConfig:
 
 
 def _normal(gen: torch.Generator, shape, scale, dtype):
+    # scaled in place: one float32 copy of the weight at a time (kimi-k2's
+    # [384, 7168, 2048] experts are 21 GiB in float32)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device)
-    return (scale * x).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in, shape, dtype):

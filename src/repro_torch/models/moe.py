@@ -49,11 +49,14 @@ def moe_param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def init_moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_moe_params(gen: torch.Generator, cfg: ModelConfig, out) -> None:
     """Normal fan-in init of every weight (the fan-in is the second-last
-    dim: d for the router, w1, w3; f for w2)."""
-    return {name: dense_init(gen, shape[-2], shape, dt)
-            for name, (shape, dt) in moe_param_shapes(cfg).items()}
+    dim: d for the router, w1, w3; f for w2), written into ``out`` (name ->
+    the parameter): each weight is drawn in float32 and copied straight
+    into its parameter, so a layer's experts (kimi-k2's are three of 10.5
+    GiB) are never held twice."""
+    for name, (shape, _) in moe_param_shapes(cfg).items():
+        out[name].copy_(dense_init(gen, shape[-2], shape, torch.float32))
 
 
 def expert_capacity(n_tokens: int, cfg: ModelConfig) -> int:

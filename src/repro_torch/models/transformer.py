@@ -73,6 +73,9 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """A layer's weights, but for a moe layer's expert weights:
+    ``DecoderLM.init`` draws those next, straight into their parameters
+    (``moe.init_moe_params``)."""
     ones = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
     p = {"ln1": ones, "ln2": ones.clone()}
     if cfg.family == "ssm":
@@ -80,9 +83,7 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
         return p
     p["attn"] = attn.init_attn_params(gen, cfg)
-    if cfg.n_experts:
-        p["moe"] = moe_mod.init_moe_params(gen, cfg)
-    else:
+    if not cfg.n_experts:
         p["ffn"] = init_ffn_params(gen, cfg)
     return p
 
@@ -272,6 +273,8 @@ class DecoderLM(nn.Module):
                         getattr(blk, key)[name].copy_(t)
                 else:
                     getattr(blk, key).copy_(val)
+            if cfg.n_experts:
+                moe_mod.init_moe_params(gen, cfg, blk.moe)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,

@@ -7,7 +7,8 @@ The same inputs, made from a seed with NumPy (bfloat16 ones cast with
 * the JAX package's Pallas kernel, in interpreter mode as its own tests
   run it (tests/test_kernels.py), at the shapes of those tests: MHA, GQA
   2:1 and 4:1 in float32 and bfloat16, sliding windows 32/64/128 and
-  non-causal;
+  non-causal; and at the head dims those tests do not reach, 112
+  (kimi-k2) and 32 (seamless reduced), causal and windowed;
 * the JAX package's oracle ``ref.flash_attention_ref`` at shapes the
   Pallas launcher does not take: a ragged S and S < Sk.
 
@@ -87,6 +88,25 @@ def test_plain_matches_pallas_sliding_window(window):
     assert np.max(np.abs(full - got)) > 1e-3
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dh,window", [(112, 0), (112, 64), (32, 0), (32, 64)])
+def test_plain_matches_pallas_head_dims_112_and_32(dh, window, dtype):
+    q, k, v = _qkv(6, 1, 8, 2, 256, 256, dh, dtype)  # GQA 4:1
+    want = ref_ops.flash_attention(q, k, v, causal=True, window=window,
+                                   block_q=64, block_k=64, interpret=True)
+    got = _port(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got, _f32(want), **_tol(dtype))
+
+
+def test_head_dims_cover_every_config():
+    # the kernel takes every d_head of the reference's configs, full and
+    # reduced, as the Pallas kernel (whose blocks span dh whole) does
+    from repro.configs import all_archs, get_config
+    dims = {get_config(a, reduced).d_head for a in all_archs()
+            for reduced in (False, True)}
+    assert dims <= set(fa.HEAD_DIMS), sorted(dims - set(fa.HEAD_DIMS))
+
+
 def test_plain_matches_pallas_noncausal():
     q, k, v = _qkv(2, 1, 2, 2, 128, 128, 64)
     want = ref_ops.flash_attention(q, k, v, causal=False, block_q=64,
@@ -149,6 +169,10 @@ def test_each_source_has_its_own_hash_keyed_library(tmp_path):
     (1, 4, 2, 96, 160, 64, False, 0),       # non-causal
     (1, 4, 2, 33, 77, 80, False, 0),        # non-causal, ragged
     (1, 4, 2, 1, 1, 64, True, 0),           # one query, one key
+    (2, 8, 8, 200, 200, 112, True, 0),      # dh 112, ragged
+    (1, 64, 8, 256, 256, 112, True, 0),     # kimi-k2 grouping, 8:1
+    (2, 4, 4, 300, 300, 32, True, 0),       # dh 32
+    (1, 4, 2, 70, 300, 32, True, 64),       # dh 32, S < Sk, window
 ])
 def test_kernel_matches_plain_on_card(B, H, KV, S, Sk, dh, causal, window,
                                       dtype):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's K4, rwkv, K5 and moe checks on copies of the tree,
-each with one planted fault, to show where each check's tolerance sits.
+"""Run chip_smoke.py's K3, model, K4, rwkv, K5 and moe checks on copies of
+the tree, each with one planted fault, to show where each check's
+tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
@@ -27,6 +28,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # name -> (file, the sound line(s), the faulty line(s), phases to run)
 FAULTS = {
+    "k3_pv_drops_lo": (
+        # P V on P's high bf16 part alone: the split's cost and its check
+        "src/repro_torch/csrc/flash_attention.cu",
+        "        wgmma_bf16_rs<1>(o, &plo[4 * kk], dv, 1);\n", "",
+        ("k3", "model")),
+    "k3_producer_skips_last_kv_stage": (
+        # an item's last K and V boxes start past Sk: TMA fills zeros
+        "src/repro_torch/csrc/flash_attention.cu",
+        ("            tma_load_4d(sk(s) + c * T::kKBox, &tmap_k, &k_full[s], 64 * c,\n"
+         "                        kj * kTK, kvh, it.b);",
+         "            tma_load_4d(sv(s) + c * T::kKBox, &tmap_v, &v_full[s], 64 * c,\n"
+         "                        kj * kTK, kvh, it.b);"),
+        ("            tma_load_4d(sk(s) + c * T::kKBox, &tmap_k, &k_full[s], 64 * c,\n"
+         "                        kj < it.last ? kj * kTK : p.Sk + kTK, kvh, it.b);",
+         "            tma_load_4d(sv(s) + c * T::kKBox, &tmap_v, &v_full[s], 64 * c,\n"
+         "                        kj < it.last ? kj * kTK : p.Sk + kTK, kvh, it.b);"),
+        ("k3", "model")),
+    "k3_frees_stage_before_wgmma_wait": (
+        # the previous tile's stage freed as soon as its P V is issued
+        "src/repro_torch/csrc/flash_attention.cu",
+        ("        wgmma_wait<1>();  // S has arrived",
+         "        if (lane == 0) mbar_arrive(&kv_empty[s_prev]);  // its stage is read"),
+        ("        if (lane == 0) mbar_arrive(&kv_empty[s_prev]);\n"
+         "        wgmma_wait<1>();  // S has arrived", ";"),
+        ("k3", "model")),
+    "k3_causal_diagonal_off_by_one": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "ok = ok && kpos <= qpos;", "ok = ok && kpos < qpos;",
+        ("k3", "model")),
     "k4_no_bonus": (
         "src/repro_torch/csrc/rwkv_scan.cu",
         "acc[e] += rr[e] * (s[i] + uu[e] * kv);",
@@ -71,7 +101,8 @@ FAULTS = {
         "sorted_e * (G * C) + grp * C + rank",
         "sorted_e * ((G - 1) * C) + grp * C + rank", ("moe",)),
 }
-KEEP = ("case", "variant", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
+KEEP = ("case", "dtype", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
+        "variant", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
         "err_over_limit_state", "k4_launches", "k4_vs_plain",
         "decode_vs_prefill", "state_vs_prefill", "f32_k4_vs_plain",
         "f32_k4_vs_plain_state", "max_abs_err", "err_over_limit",
@@ -81,11 +112,11 @@ KEEP = ("case", "variant", "max_abs_err_out", "max_abs_err_state", "err_over_lim
         "cache_vs_prefill", "f32_k5_vs_einsum")
 
 
-def plant(name: str) -> Path:
-    path, sound, faulty, _ = FAULTS[name]
+def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
+    """``src/`` and ``chip_smoke.py`` copied to ``dst`` with each line (or
+    lines) of ``sound`` in the copy's ``path`` replaced by ``faulty``'s."""
     if isinstance(sound, str):
         sound, faulty = (sound,), (faulty,)
-    dst = ROOT / "build" / "planted" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "src", dst / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -93,10 +124,15 @@ def plant(name: str) -> Path:
     text = (dst / path).read_text()
     for good, bad in zip(sound, faulty):
         if text.count(good) != 1:
-            raise RuntimeError(f"{name}: {good!r} is not once in {path}")
+            raise RuntimeError(f"{dst.name}: {good!r} is not once in {path}")
         text = text.replace(good, bad)
     (dst / path).write_text(text)
     return dst
+
+
+def plant(name: str) -> Path:
+    path, sound, faulty, _ = FAULTS[name]
+    return copy_tree(ROOT / "build" / "planted" / name, path, sound, faulty)
 
 
 def run(name: str, phase: str) -> dict:
@@ -108,7 +144,7 @@ def run(name: str, phase: str) -> dict:
         if not line.startswith("{"):
             continue
         rec = json.loads(line)
-        if rec.get("phase") in ("kernel", "rwkv", "moe"):
+        if rec.get("phase") in ("kernel", "model", "rwkv", "moe"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,
