@@ -15,10 +15,14 @@ JSON lines:
    the main path's full window (2^20 rows × 64 steps), a ragged 70 000 ×
    12 and 1 × 1, held to their plain PyTorch versions on the card and to
    the NumPy reference on the host with ``torch.equal`` /
-   ``array_equal`` (tolerance 0: the contract is bit-exact). Median
-   kernel time over CUDA events, the byte bound at 3.35 TB/s, the plain
-   version's time, and the upload/download time of a host-NumPy call as
-   the backend makes it.
+   ``array_equal`` (tolerance 0: the contract is bit-exact); then K2
+   alone at ``K2_CASES`` against its row tiling and column walk (W 60,
+   the main path's d_max; W 61; R off the row tile; row keys >= 2^63;
+   ``now`` near 2^44), and checked and timed at the main path's commonest
+   forecast shapes (``K2_MAIN_SHAPES``; the largest is K2's entry in the
+   ``kernels`` line). Median kernel time over CUDA events, the
+   byte bound at 3.35 TB/s, the plain version's time, and the
+   upload/download time of a host-NumPy call as the backend makes it.
 3. ``ops`` — every op the device backend overrides, on the card,
    against the NumPy backend bit for bit (``top_m`` with forced ties,
    int64 multiplies that wrap).
@@ -57,15 +61,20 @@ JSON lines:
    slot the step wrote and at the slots before it.
 7. ``kernel`` for K4 ``rwkv_scan`` — against its plain PyTorch version on
    the card, element by element within ``K4_TOL`` (below), for the output
-   and the final state, with inputs made as the model makes them (w =
-   exp(-exp(logit)), logit around -0.5 ± 0.6): at the rwkv6-1.6b prefill
-   shape (B 4, S 2048, H 32, dh 64), at a ragged S 2047 and at S 1, and at
-   dh 32 and 16 with small B and H. At the full shape: K4 and plain ms over
-   CUDA events, and the bound.
+   and the final state, each finite, with inputs made as the model makes
+   them (w = exp(-exp(logit)), logit around -0.5 ± 0.6) at ``K4_CASES``:
+   the rwkv6-1.6b prefill shape (B 4, S 2048, H 32, dh 64) with float32
+   and with bf16 r/k/v, a strong and a weak decay (logit around +2 and
+   -4) at S 2048, the prefill at batch 1 (at both decays; its 32 streams
+   take four groups each), a ragged S 2047, S 1, 17 and 33 (against the
+   32-token chunk), S 129 and 300 (several groups, at the weak decay), and
+   dh 32 and 16 with small B and H. At the prefill shape, in both dtypes,
+   and at batch 1: K4 and plain ms over CUDA events, and the bound.
 8. ``rwkv`` — rwkv6-1.6b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. K4's count is set to 0 just before this run and
-   read just after (one launch per prefill layer: 24). Then, on the same
+   read just after (one launch per prefill layer: 24, one group a stream).
+   Then, on the same
    weights: the last-position logits of the K4 route against the plain
    route (the per-token recurrence), and ``decode_step`` after
    ``prefill(S - 1)`` against ``prefill(S)``, each within
@@ -145,6 +154,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12              # H100 SXM tf32 tensor cores, dense
 SOURCES = {"piece_window": "src/repro_torch/csrc/counter_hash.cu",
            "forecast_z": "src/repro_torch/csrc/counter_hash.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -193,10 +203,12 @@ K3_CASES = [  # name, B, H, KV, S, Sk, dh, causal, window
 # prefills the script runs); the first is the kernels line's
 K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill")
 # K4 against its plain version, element by element, for the output and the
-# final state: |got - want| <= atol + rtol * |want|. Both run the same
-# float32 recurrence; they differ only in summation order and fused
-# multiply-adds. Each output sums 64 terms of up to ~100 in size, so the
-# plain version alone is ~1.5e-5 off a float64 scan at 512 steps: atol 1e-4.
+# final state: |got - want| <= atol + rtol * |want|. Both compute in
+# float32: K4 in chunks with every product split into three TF32 parts
+# (~6 digits), the plain version token by token; they differ by summation
+# order and rounding. Each output sums 64 terms of up to ~100 in size, so
+# the plain version alone is ~1.5e-5 off a float64 scan at 512 steps: atol
+# 1e-4. One TF32 product per term misses it by two orders (PERF.md §6).
 K4_TOL = (1e-4, 1e-4)
 # rwkv6-1.6b, relative to the largest value as LOGIT_TOL: decode_step
 # against prefill(S), its logits within RWKV_LOGIT_TOL and each state tensor
@@ -335,16 +347,19 @@ def check_kernels(torch, bk, host):
         require(ch.forecast_z.launches == n2 + 1, "K2 did not count")
         p1 = ch.piece_window_plain(lv, sl, fold, rw, 10_000, amp)
         p2 = ch.forecast_z_plain(fold, rw2, 777, sd)
-        require(torch.equal(k1, p1), f"K1 != plain at {R}x{W}")
-        require(torch.equal(k2, p2), f"K2 != plain at {R}x{W}")
         h1 = host.synth_window(levels.copy(), slot, fold, rows, 10_000, amp)
         h2 = host.forecast_noise_z(fold, rows, 777, W, std)
-        require(np.array_equal(k1.cpu().numpy(), h1), f"K1 != numpy {R}x{W}")
-        require(np.array_equal(k2.cpu().numpy(), h2), f"K2 != numpy {R}x{W}")
+        eq_plain = [bool(torch.equal(k1, p1)), bool(torch.equal(k2, p2))]
+        eq_numpy = [bool(np.array_equal(k1.cpu().numpy(), h1)),
+                    bool(np.array_equal(k2.cpu().numpy(), h2))]
         err1 = float((k1 - p1).abs().max())
         err2 = float((k2 - p2).abs().max())
-        line = {"R": R, "W": W, "S": S, "equal_plain": True,
-                "equal_numpy": True, "max_abs_err": [err1, err2]}
+        line = {"R": R, "W": W, "S": S, "equal_plain": eq_plain,
+                "equal_numpy": eq_numpy, "max_abs_err": [err1, err2]}
+        emit("kernel_case", **line)
+        for i, name in enumerate(("K1", "K2")):
+            require(eq_plain[i], f"{name} != plain at {R}x{W}")
+            require(eq_numpy[i], f"{name} != numpy at {R}x{W}")
         if full:
             b1 = (R * S * 4 + R * W * 8 + R * 8 + R * W * 4)
             b2 = (R * 8 + W * 4 + R * W * 4)
@@ -382,11 +397,72 @@ def check_kernels(torch, bk, host):
                 m["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
                 m["launches_phase2"] = getattr(ch, name).launches
                 emit("kernel", name=name, R=R, W=W, S=S, **m)
-            results = t
-        emit("kernel_case", **line)
+            results = dict(t)
         del lv, sl, rw, rw2, sd, k1, k2, p1, p2
         torch.cuda.empty_cache()
+    # K2's kernels line: the main path's largest forecast shape (2^20 x 64
+    # above is a correctness and throughput case)
+    results["forecast_z"] = check_forecast_cases(torch, bk, host, fold)
     return results
+
+
+# K2 cases against its tiling and walk: name, R, W, first row key, now
+K2_CASES = [
+    ("W 60, the main path's d_max", FULL_R, 60, 0, 777),
+    ("W 61", 100_003, 61, 0, 777),
+    ("R off the row tile", 1001, 64, 0, 777),
+    ("row keys >= 2^63", 4099, 60, 2 ** 63 + 12_345, 777),
+    ("now near 2^44", 4096, 60, 0, 2 ** 44 - 3),
+]
+
+
+# the main path's commonest forecast shapes (R, W), read once from the
+# main_path phase's window_top_shapes (PERF.md §6): a tie of
+# forecast_noise_z at 10 x 60 and at 1024 x 60, 34 of its 395 calls each
+K2_MAIN_SHAPES = ((10, 60), (1024, 60))
+
+
+def check_forecast_cases(torch, bk, host, fold):
+    """K2 at K2_CASES, each equal to its plain version on the card and to
+    the NumPy reference on the host (tolerance 0); then checked and timed
+    at K2_MAIN_SHAPES. Returns the largest of those shapes' lines."""
+    from repro_torch.kernels import counter_hash as ch
+
+    for name, R, W, row0, now in K2_CASES:
+        rows = (np.uint64(row0) + np.arange(R, dtype=np.uint64))
+        std = std_lead(W)
+        rw, sd = bk._forecast_args(rows, W, std)
+        n0 = ch.forecast_z.launches
+        got = ch.forecast_z(fold, rw, now, sd)
+        torch.cuda.synchronize()
+        require(ch.forecast_z.launches == n0 + 1, "K2 did not count")
+        plain = ch.forecast_z_plain(fold, rw, now, sd)
+        want = host.forecast_noise_z(fold, rows, now, W, std)
+        eq_plain = bool(torch.equal(got, plain))
+        eq_numpy = bool(np.array_equal(got.cpu().numpy(), want))
+        emit("kernel_case", name="forecast_z", case=name, R=R, W=W,
+             row0=row0, now=now, equal_plain=eq_plain, equal_numpy=eq_numpy,
+             max_abs_err=float((got - plain).abs().max()))
+        require(eq_plain and eq_numpy, f"K2 != plain or numpy: {name}")
+        del rw, sd, got, plain
+    torch.cuda.empty_cache()
+    line = None
+    for R, W in sorted(K2_MAIN_SHAPES, key=lambda rw: rw[0] * rw[1]):
+        rows = np.arange(R, dtype=np.uint64)
+        rw, sd = bk._forecast_args(rows, W, std_lead(W))
+        got = ch.forecast_z(fold, rw, 777, sd)
+        plain = ch.forecast_z_plain(fold, rw, 777, sd)
+        require(torch.equal(got, plain), f"K2 != plain at {R}x{W}")
+        nbytes = R * 8 + W * 4 + R * W * 4
+        line = dict(
+            ms=cuda_ms(torch, lambda: ch.forecast_z(fold, rw, 777, sd), 50),
+            plain_ms=cuda_ms(torch, lambda: ch.forecast_z_plain(
+                fold, rw, 777, sd), 20),
+            max_abs_err=float((got - plain).abs().max()), bytes=nbytes,
+            bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+        emit("kernel", name="forecast_z", case="main path shape", R=R, W=W,
+             **line)
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -738,17 +814,46 @@ def run_model(torch):
 # phase 7: K4 rwkv scan
 
 
-def scan_case(torch, gen, B, S, H, dh):
+def scan_case(torch, gen, B, S, H, dh, logit_mean=-0.5):
     """r, k, v, w [B, S, H, dh] and u [H, dh] in float32, as the model makes
     them: unit-scale projections, w = exp(-exp(logit)) with logit around
-    -0.5 +- 0.6, u at the fan-in scale of its init."""
+    ``logit_mean`` +- 0.6 (the model's init: -0.5), u at the fan-in scale
+    of its init."""
     dev = gen.device
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
     r, k, v = (randn(B, S, H, dh) for _ in range(3))
-    w = torch.exp(-torch.exp(-0.5 + 0.6 * randn(B, S, H, dh)))
+    w = torch.exp(-torch.exp(logit_mean + 0.6 * randn(B, S, H, dh)))
     return r, k, v, w, randn(H, dh) / dh ** 0.5
+
+
+# K4 cases: name, B, S, H, dh, dtype of r/k/v, decay logit mean. Logit
+# mean +2 is a trained model's strong decay: w ~ 6e-4 a step, 2^-340 over
+# a chunk; -4 a weak one (w ~ 0.98, ~0.5 over a chunk), where the state
+# carried across chunks and groups matters (at -0.5 a chunk forgets it,
+# ~2^-33). The B H streams of the B 4 cases fill the card (one group a
+# stream, the serial chunk walk); the others take several groups a stream.
+# K4_TIMED are timed; the first, in the model's dtype, is the kernels
+# line's.
+K4_CASES = [
+    ("rwkv6-1.6b prefill", 4, 2048, 32, 64, "float32", -0.5),
+    ("rwkv6-1.6b prefill, bf16 r/k/v", 4, 2048, 32, 64, "bfloat16", -0.5),
+    ("strong decay", 4, 2048, 32, 64, "float32", 2.0),
+    ("weak decay", 4, 2048, 32, 64, "float32", -4.0),
+    ("rwkv6-1.6b prefill, batch 1", 1, 2048, 32, 64, "bfloat16", -0.5),
+    ("weak decay, batch 1", 1, 2048, 32, 64, "bfloat16", -4.0),
+    ("ragged S 2047", 4, 2047, 32, 64, "float32", -0.5),
+    ("S 1", 4, 1, 32, 64, "float32", -0.5),
+    ("S 17", 2, 17, 4, 64, "float32", -0.5),
+    ("S 33", 2, 33, 4, 64, "bfloat16", -0.5),
+    ("S 129, weak decay", 2, 129, 4, 64, "float32", -4.0),
+    ("S 300, weak decay", 2, 300, 3, 64, "bfloat16", -4.0),
+    ("dh 32", 2, 300, 4, 32, "float32", -0.5),
+    ("dh 16", 2, 77, 3, 16, "float32", -0.5),
+]
+K4_TIMED = ("rwkv6-1.6b prefill, bf16 r/k/v", "rwkv6-1.6b prefill",
+            "rwkv6-1.6b prefill, batch 1")
 
 
 def check_rwkv_scan(torch):
@@ -756,23 +861,22 @@ def check_rwkv_scan(torch):
 
     gen = torch.Generator(torch.device("cuda:0")).manual_seed(4)
     atol, rtol = K4_TOL
-    cases = [  # B, S, H, dh
-        ("rwkv6-1.6b prefill", 4, 2048, 32, 64),
-        ("ragged S 2047", 4, 2047, 32, 64),
-        ("S 1", 4, 1, 32, 64),
-        ("dh 32", 2, 300, 4, 32),
-        ("dh 16", 2, 77, 3, 16),
-    ]
     full = None
-    for name, B, S, H, dh in cases:
-        args = scan_case(torch, gen, B, S, H, dh)
+    for name, B, S, H, dh, dtype, mean in K4_CASES:
+        r, k, v, w, u = scan_case(torch, gen, B, S, H, dh, mean)
+        r, k, v = (x.to(getattr(torch, dtype)) for x in (r, k, v))
+        args = (r, k, v, w, u)
         n0 = k4.rwkv_scan.launches
         out, state = k4.rwkv_scan(*args, return_state=True)
         torch.cuda.synchronize()
-        require(k4.rwkv_scan.launches == n0 + 1, "K4 did not count")
-        want, want_state = k4.rwkv_scan_plain(*args)
+        require(k4.rwkv_scan.launches == n0 + k4.kernel_launches(B, H, S),
+                "K4 did not count")
+        want, want_state = k4.rwkv_scan_plain(r.float(), k.float(),
+                                              v.float(), w, u)
         line = dict(name="rwkv_scan", case=name, B=B, S=S, H=H, dh=dh,
-                    atol=atol, rtol=rtol)
+                    dtype=dtype, logit_mean=mean, atol=atol, rtol=rtol,
+                    groups=k4.groups(B, H, S),
+                    finite=all_finite(torch, out, state))
         ratio = 0.0
         for part, got, ref in (("out", out, want), ("state", state,
                                                     want_state)):
@@ -784,27 +888,30 @@ def check_rwkv_scan(torch):
             ratio = r_ if not r_ <= ratio else ratio  # NaN is kept
         line["max_abs_err"] = max(line["max_abs_err_out"],
                                   line["max_abs_err_state"])
-        if full is None:
+        if name in K4_TIMED:
             # each input read once, the output and the final state written
-            # once; about 6 dh^2 operations per token and stream
-            nbytes = (5 * args[0].numel() + args[4].numel()
-                      + state.numel()) * 4
+            # once; about 6 dh^2 operations per token and stream, on the
+            # tensor cores as three TF32 products each
+            nbytes = (sum(x.numel() * x.element_size() for x in args)
+                      + (out.numel() + state.numel()) * 4)
             flops = 6 * B * S * H * dh * dh
-            op_ms = 1e3 * flops / FP32_FLOPS
+            op_ms = 1e3 * 3 * flops / TF32_FLOPS
             byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             line.update(
                 ms=cuda_ms(torch, lambda: k4.rwkv_scan(
                     *args, return_state=True), 10),
-                plain_ms=cuda_ms(torch, lambda: k4.rwkv_scan_plain(*args), 3,
-                                 warmup=1),
+                plain_ms=cuda_ms(torch, lambda: k4.rwkv_scan_plain(
+                    r.float(), k.float(), v.float(), w, u), 3, warmup=1),
                 library_ms=None, flops=flops, bytes=nbytes,
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes")
-            full = line
+            if name == K4_TIMED[0]:
+                full = line
         emit("kernel", **line)
+        require(line["finite"], f"K4 output or state not finite: {name}")
         require(ratio <= 1.0, f"K4 != plain: {name}, max_abs_err "
                 f"{line['max_abs_err']}, {ratio} x the limit")
-        del args, out, state, want, want_state
+        del args, r, k, v, w, u, out, state, want, want_state
         torch.cuda.empty_cache()
     return full
 
@@ -914,9 +1021,10 @@ def run_rwkv(torch):
     require(finite_routes and finite_routes32,
             "non-finite logits or final state on the K4 or plain route")
     require(tokens.shape == (B, gen), f"generated {tokens.shape}")
-    require(launches == cfg.n_layers,
+    want_launches = cfg.n_layers * k4.kernel_launches(B, cfg.n_heads, P)
+    require(launches == want_launches,
             f"K4 launched {launches} times in one prefill, want "
-            f"{cfg.n_layers}")
+            f"{want_launches}")
     require(route["ok"], f"K4 route != plain route: {route}")
     require(decode["ok"], f"decode_step != prefill: {decode}")
     require(st["ok"], f"decode_step's state != prefill's: {st}")

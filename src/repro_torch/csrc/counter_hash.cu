@@ -22,16 +22,27 @@
 // What bounds them on an H100: device-memory bytes. piece_window moves about
 // 4 + 8 + 4 bytes per cell (levels gather, int64 slot, float32 out) plus its
 // levels row; forecast_z about 4 bytes per cell (its output) plus 8 bytes per
-// row and 4 per lead. The four or five 64-bit multiplies per cell are far
-// below the card's integer rate.
+// row and 4 per lead. The hashing costs issued instructions that the byte
+// bound does not count: forecast_z's mixer is two 64-bit multiplies per cell.
 //
-// Design: one thread per output cell, a grid-stride loop over the
+// piece_window: one thread per output cell, a grid-stride loop over the
 // row-major [R, W] grid with 64-bit offsets, so neighbouring threads read
 // neighbouring slot entries and write neighbouring outputs; the ragged
-// edge is masked by the loop bound, nothing is padded. This first version
-// is simple and right, not tuned: the per-cell 64-bit division that splits
-// a flat index into (row, col), and forecast_z recomputing the row premix
-// in every cell of the row, are left for a later change.
+// edge is masked by the loop bound, nothing is padded.
+//
+// forecast_z is row-tiled and division-free. Each block owns a tile of
+// whole rows (a multiple of 4 rows, about 4096 cells), which is one
+// contiguous, 16-byte aligned span of the row-major output. The block
+// computes the row premix sm64(row ^ fold) once per row into shared memory.
+// Each thread owns groups of 4 consecutive cells, 1024 cells apart; it
+// finds (row, col) of its first group with one division per thread and
+// then walks: col + 1 per cell, and 1024 cells = (1024 / W rows, 1024 % W
+// cols) per group, carrying into the row when col reaches W. The 24-bit
+// mixer output converts through a 32-bit conversion (exact below 2^24).
+// A group is written with one 16-byte streaming store (__stcs); staging
+// the tile in shared memory for one bulk asynchronous copy measured no
+// faster (PERF.md). A tile whose cell count is not a multiple of 4 (only
+// the last, when R * W is not) writes its last cells one by one.
 
 #include <cuda_runtime.h>
 
@@ -56,6 +67,16 @@ __device__ __forceinline__ float cheap_u01(unsigned long long h) {
   h *= 0xC4CEB9FE1A85EC53ull;
   h ^= h >> 29;
   return __fmul_rn(__ull2float_rn(h >> 40), 0x1p-24f);
+}
+
+// cheap_u01 with the 24-bit value converted through 32 bits (exact: it is
+// below 2^24), as forecast_z uses it
+__device__ __forceinline__ float cheap_u01_24(unsigned long long h) {
+  h *= 0xFF51AFD7ED558CCDull;
+  h ^= h >> 32;
+  h *= 0xC4CEB9FE1A85EC53ull;
+  h ^= h >> 29;
+  return __fmul_rn(__uint2float_rn((unsigned)(h >> 40)), 0x1p-24f);
 }
 
 __global__ void piece_window_kernel(const float* __restrict__ levels,
@@ -84,24 +105,66 @@ __global__ void piece_window_kernel(const float* __restrict__ levels,
   }
 }
 
-__global__ void forecast_z_kernel(const unsigned long long* __restrict__ rows,
-                                  const float* __restrict__ std_lead,
-                                  float* __restrict__ out, long long R,
-                                  long long W, unsigned long long fold,
-                                  unsigned long long now) {
-  const long long n = R * W;
-  const long long step = (long long)gridDim.x * blockDim.x;
+constexpr int kTileCells = 4096;  // target cells per forecast_z tile
+
+__device__ __forceinline__ float forecast_cell(unsigned long long row_h,
+                                               unsigned long long now_key,
+                                               int c, unsigned long long fold,
+                                               const float* std_lead) {
+  const unsigned long long key =
+      row_h ^ (now_key + (unsigned long long)(c + 1));
+  const float u = cheap_u01_24(key ^ fold);
+  const float t = __fmul_rn(__fsub_rn(u, 0.5f), kSqrt12);
+  return __fmul_rn(t, __ldg(std_lead + c));
+}
+
+// one block per tile of `tile_rows` rows; dynamic shared memory holds the
+// tile's row premixes
+__global__ void __launch_bounds__(kThreads) forecast_z_kernel(
+    const unsigned long long* __restrict__ rows,
+    const float* __restrict__ std_lead, float* __restrict__ out, long long R,
+    int W, int tile_rows, unsigned long long fold, unsigned long long now) {
+  extern __shared__ __align__(16) unsigned long long row_h[];
+  const long long r0 = (long long)blockIdx.x * tile_rows;
+  const int n_rows = (int)min((long long)tile_rows, R - r0);
+  for (int i = threadIdx.x; i < n_rows; i += kThreads)
+    row_h[i] = sm64(rows[r0 + i] ^ fold);
+  __syncthreads();
+
   const unsigned long long now_key = now << 20;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const long long r = i / W;
-    const long long c = i - r * W;
-    const unsigned long long row_h = sm64(rows[r] ^ fold);
-    const unsigned long long key =
-        row_h ^ (now_key + (unsigned long long)(c + 1));
-    const float u = cheap_u01(key ^ fold);
-    const float t = __fmul_rn(__fsub_rn(u, 0.5f), kSqrt12);
-    out[i] = __fmul_rn(t, std_lead[c]);
+  const int n_cells = n_rows * W;
+  const int n_groups = n_cells >> 2;
+  float* tile = out + r0 * W;
+  float4* dst = reinterpret_cast<float4*>(tile);
+  // (row, col) of this thread's first group, and the step of one group
+  // stride; the only divisions of the walk
+  const int first = 4 * threadIdx.x;
+  int r = first / W, c = first - r * W;
+  const int dr = 4 * kThreads / W, dc = 4 * kThreads - dr * W;
+  for (int g = threadIdx.x; g < n_groups; g += kThreads) {
+    float z[4];
+    int rr = r, cc = c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      z[e] = forecast_cell(row_h[rr], now_key, cc, fold, std_lead);
+      if (++cc == W) {
+        cc = 0;
+        ++rr;
+      }
+    }
+    __stcs(dst + g, make_float4(z[0], z[1], z[2], z[3]));
+    r += dr;
+    c += dc;
+    if (c >= W) {
+      c -= W;
+      ++r;
+    }
+  }
+  // the last n_cells % 4 cells (only when R * W is not a multiple of 4)
+  const int i = 4 * n_groups + threadIdx.x;
+  if (i < n_cells) {
+    const int ri = i / W;
+    tile[i] = forecast_cell(row_h[ri], now_key, i - ri * W, fold, std_lead);
   }
 }
 
@@ -132,11 +195,20 @@ int piece_window_launch(const void* levels, const void* slot, const void* rows,
 int forecast_z_launch(const void* rows, const void* std_lead, void* out,
                       long long R, long long W, unsigned long long fold,
                       unsigned long long now, void* stream) {
-  forecast_z_kernel<<<grid_for(R * W), kThreads, 0,
+  // whole rows, a multiple of 4 (so every tile starts 16-byte aligned),
+  // about kTileCells cells
+  long long tile_rows = (kTileCells / W) & ~3LL;
+  if (tile_rows < 4) tile_rows = 4;
+  if (W > (1 << 24) || tile_rows * W > (1 << 26))
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (R + tile_rows - 1) / tile_rows;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_rows * sizeof(unsigned long long);
+  forecast_z_kernel<<<(unsigned int)n_tiles, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned long long*>(rows),
-      static_cast<const float*>(std_lead), static_cast<float*>(out), R, W,
-      fold, now);
+      static_cast<const float*>(std_lead), static_cast<float*>(out), R,
+      (int)W, (int)tile_rows, fold, now);
   return (int)cudaGetLastError();
 }
 

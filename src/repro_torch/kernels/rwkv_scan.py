@@ -9,18 +9,26 @@ for each (batch, head) stream from a zero state ``S`` [dh, dh]
     out_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ
 
-over r, k, v, w [B, S, H, dh] and u [H, dh], all float32. It returns out
+over r, k, v, w [B, S, H, dh] and u [H, dh]: r, k and v float32 or
+bfloat16 (one dtype), w and u float32, the scan in float32. It returns out
 [B, S, H, dh] float32 and, with ``return_state=True``, also the final
 state [B, H, dh, dh] float32, as ``repro/models/ssm.py::rwkv_recurrence``
 does (the Pallas kernel keeps that state only in its scratch memory).
 
-The wrapper takes tensors: on CPU tensors it runs :func:`rwkv_scan_plain`,
-on CUDA tensors it launches the kernel or raises — there is no fallback
-between the two. ``rwkv_scan.launches`` counts the kernel's launches. The
-kernel runs the recurrence token by token (the TPU kernel's chunked form
-divides by the cumulative decay; this one divides by nothing), reads the
-inputs through their strides (dh contiguous), and, unlike the reference's
-launcher, takes any S >= 1 (no chunk multiple).
+The wrapper takes tensors: on CPU tensors it runs :func:`rwkv_scan_plain`
+(on r, k and v cast to float32), on CUDA tensors it launches the kernel or
+raises — there is no fallback between the two. ``rwkv_scan.launches``
+counts the kernels' launches: three a call (each group's own state, the
+carry across groups, the outputs), one at one group a stream
+(:func:`kernel_launches`). The kernels work in parallel over (stream,
+group of whole chunks), about as many groups as fill the card's SMs
+(:func:`groups`; one at the rwkv6-1.6b prefill's 128 streams), in chunks
+of ``CHUNK`` tokens with the products on the tensor cores, and divide by
+no cumulative decay (the TPU kernel's ``k / a`` overflows under strong
+decay);
+:func:`rwkv_scan_chunked_plain` is their decomposition in plain PyTorch,
+for the CPU tests. They read the inputs through their strides (dh
+contiguous) and, unlike the reference's launcher, take any S >= 1.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from . import _build
 
 _SRC = _build.CSRC / "rwkv_scan.cu"
 HEAD_DIMS = (16, 32, 64)
+# the dtypes K4 reads r, k and v in (w and u are float32)
+RKV_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rwkv_scan_plain(r, k, v, w, u, state=None):
@@ -52,6 +62,120 @@ def rwkv_scan_plain(r, k, v, w, u, state=None):
     return torch.stack(outs, dim=1), state
 
 
+# the kernel's chunk and sub-chunk lengths, and its floor on log2 w
+CHUNK = 32
+SUB = 16
+LOG2_FLOOR = -150.0
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as the kernel's ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernel forms it on the tensor cores: three TF32
+    products of the hi + lo parts of both operands (lo·hi + hi·lo + hi·hi),
+    summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _suffix(x):
+    """Exclusive suffix sums along dim 2: out[j] = sum_{i > j} x[i]."""
+    inc = torch.flip(torch.cumsum(torch.flip(x, [2]), 2), [2])
+    return torch.nn.functional.pad(inc[:, :, 1:], (0, 0, 0, 1))
+
+
+def rwkv_scan_chunked_plain(r, k, v, w, u, group=None):
+    """The kernels' decomposition of :func:`rwkv_scan` in plain PyTorch
+    (float32 in and out; nothing on the main path calls it). The tokens
+    split into groups of ``group`` tokens, a multiple of ``CHUNK`` (None:
+    one group):
+
+    * each group g but the last, from a zero state: ``dS_g = (k_j
+      2^E_j)ᵀ V``, summed chunk by chunk, E_j the exclusive suffix sum of
+      log2 w to the group's end, and its decay ``D_g = 2^(Σ log2 w)``; then
+      ``S_in[g + 1] = diag(D_g) S_in[g] + dS_g`` from ``S_in[0] = 0``;
+    * each group from ``S_in[g]``, per chunk of ``CHUNK`` tokens, with L
+      the inclusive cumulative log2 decay from the chunk's start: cross
+      ``(r_t 2^L_{t-1}) · S_in`` and state ``S_out = diag(2^L_last) S_in +
+      (k_j 2^(L_last - L_j))ᵀ V``; intra ``A V`` with A's diagonal
+      ``SUB``-blocks pairwise, ``A[t, j] = Σ_c r_tc k_jc Π_{j<i<t} w_ic`` (a
+      running product of w) for j < t and the bonus ``Σ_c r_tc u_c k_tc``
+      at j = t, and its blocks below the diagonal as products anchored at
+      the query block's start p: ``(r_t 2^(L_{t-1} - L_p)) · (k_j 2^(L_p -
+      L_j))``;
+
+    log2 w floored at ``LOG2_FLOOR``, every exponent <= 0, and every product
+    (cross, intra, state, the anchored scores and dS) in three TF32 parts
+    (:func:`_mm3`). Returns (out [B, S, H, dh], final state [B, H, dh,
+    dh])."""
+    B, S, H, dh = r.shape
+    pad = -S % CHUNK
+
+    def streams(x, fill):  # [B, S, H, dh] -> [B, H, S + pad, dh]
+        x = x.float().transpose(1, 2)
+        return torch.nn.functional.pad(x, (0, 0, 0, pad), value=fill)
+
+    r, k, v, w = (streams(x, fill) for x, fill in
+                  ((r, 0.0), (k, 0.0), (v, 0.0), (w, 1.0)))
+    group = S + pad if group is None else group
+    if group % CHUNK:
+        raise ValueError(f"group {group}: want a multiple of {CHUNK}")
+    lw = torch.clamp(torch.log2(w), min=LOG2_FLOOR)
+    s_in = [torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                        device=r.device)]
+    for g0 in range(0, S + pad - group, group):
+        grp = slice(g0, g0 + group)
+        E = _suffix(lw[:, :, grp])
+        kd = (k[:, :, grp] * torch.exp2(E)).transpose(-1, -2)
+        dS = torch.zeros_like(s_in[0])
+        for c in reversed(range(0, group, CHUNK)):  # from the group's end
+            dS += _mm3(kd[..., c:c + CHUNK], v[:, :, g0 + c:g0 + c + CHUNK])
+        D = torch.exp2(E[:, :, :1] + lw[:, :, g0:g0 + 1])
+        s_in.append(D.transpose(-1, -2) * s_in[-1] + dS)
+    ub = u.float()[None, :, None, :]
+    t_ = torch.arange(SUB, device=r.device)
+    outs = []
+    for c0 in range(0, S + pad, CHUNK):
+        if c0 % group == 0:
+            state = s_in[c0 // group]
+        rc, kc, vc = (x[:, :, c0:c0 + CHUNK] for x in (r, k, v))
+        L = torch.cumsum(lw[:, :, c0:c0 + CHUNK], dim=2)
+        Lprev = torch.nn.functional.pad(L, (0, 0, 1, 0))[:, :, :-1]
+        Llast = L[:, :, -1:]
+        A = torch.zeros((B, H, CHUNK, CHUNK), dtype=torch.float32,
+                        device=r.device)
+        for a in range(0, CHUNK, SUB):
+            q = slice(a, a + SUB)
+            rq, kq, wq = rc[:, :, q], kc[:, :, q], w[:, :, c0 + a:c0 + a + SUB]
+            # the diagonal block, pair by pair: j = t - d, its decay
+            # F[t] = prod_{j<i<t} w_i grown by one factor per step of d
+            blk = torch.diag_embed((rq * ub * kq).sum(-1))
+            F = torch.ones_like(rq)
+            for d in range(1, SUB):
+                if d > 1:
+                    F[:, :, d:] = F[:, :, d:] * wq[:, :, 1:SUB - d + 1]
+                blk[:, :, t_[d:], t_[:SUB - d]] = (
+                    rq[:, :, d:] * kq[:, :, :SUB - d] * F[:, :, d:]).sum(-1)
+            A[:, :, q, q] = blk
+            if a:  # the blocks left of it, anchored at token a - 1
+                Lp = L[:, :, a - 1:a]
+                qp = rc[:, :, q] * torch.exp2(Lprev[:, :, q] - Lp)
+                kp = kc[:, :, :a] * torch.exp2(Lp - L[:, :, :a])
+                A[:, :, q, :a] = _mm3(qp, kp.transpose(-1, -2))
+        qd = rc * torch.exp2(Lprev)
+        kd = kc * torch.exp2(Llast - L)
+        outs.append(_mm3(qd, state) + _mm3(A, vc))
+        state = (torch.exp2(Llast).transpose(-1, -2) * state
+                 + _mm3(kd.transpose(-1, -2), vc))
+    out = torch.cat(outs, dim=2)[:, :, :S].transpose(1, 2)
+    return out, state
+
+
 _LIB = None
 
 
@@ -62,9 +186,11 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = _build.load(_SRC)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rwkv_scan_launch.argtypes = ([vp] * 7 + [i32] * 4 + [i64] * 12
-                                     + [vp])
+    lib.rwkv_scan_launch.argtypes = ([vp] * 9 + [ctypes.POINTER(i32)]
+                                     + [i32] * 5 + [i64] * 12 + [vp])
     lib.rwkv_scan_launch.restype = ctypes.c_int
+    lib.rwkv_scan_groups.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
+    lib.rwkv_scan_groups.restype = ctypes.c_int
     lib.rwkv_scan_error_string.argtypes = [ctypes.c_int]
     lib.rwkv_scan_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -81,9 +207,13 @@ def _check(r, k, v, w, u):
                              f"{tuple(r.shape)}: want the same")
     if u.shape != (H, dh):
         raise ValueError(f"u has shape {tuple(u.shape)}: want ({H}, {dh})")
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype}: want torch.float32")
+    if r.dtype not in RKV_DTYPES:
+        raise ValueError(f"r is {r.dtype}: want one of {RKV_DTYPES}")
+    for name, t, dtype in (("k", k, r.dtype), ("v", v, r.dtype),
+                           ("w", w, torch.float32), ("u", u, torch.float32)):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}: want {dtype}")
+    for t in (k, v, w, u):
         if t.device != r.device:
             raise ValueError("r, k, v, w and u must be on one device")
     if dh not in HEAD_DIMS:
@@ -92,17 +222,39 @@ def _check(r, k, v, w, u):
         raise ValueError(f"B {B}, S {S}, H {H}: want each >= 1")
 
 
-def rwkv_scan(r, k, v, w, u, return_state: bool = False):
-    """r, k, v, w: float32 [B, S, H, dh], any S >= 1, dh in {16, 32, 64};
-    u: float32 [H, dh]. Returns out [B, S, H, dh] float32, and with
-    ``return_state`` (out, final state [B, H, dh, dh] float32).
+def groups(B: int, H: int, S: int) -> int:
+    """The groups a stream the kernels split S tokens into, for B H
+    streams on the current CUDA device (about its SMs / (B H))."""
+    lib = load_library()
+    G = ctypes.c_int(0)
+    err = lib.rwkv_scan_groups(B, H, S, ctypes.byref(G))
+    if err != 0:
+        msg = lib.rwkv_scan_error_string(err).decode()
+        raise RuntimeError(f"rwkv_scan_groups failed: CUDA error {err} "
+                           f"({msg})")
+    return G.value
 
-    CPU tensors run :func:`rwkv_scan_plain`; CUDA tensors launch the
-    kernel, which reads r, k, v and w through their strides (the head dim
-    contiguous). Anything else raises ``ValueError``."""
+
+def kernel_launches(B: int, H: int, S: int) -> int:
+    """The kernels one CUDA call of :func:`rwkv_scan` launches: one at one
+    group a stream, else three."""
+    return 1 if groups(B, H, S) == 1 else 3
+
+
+def rwkv_scan(r, k, v, w, u, return_state: bool = False):
+    """r, k, v: float32 or bfloat16 (one dtype), w: float32, each
+    [B, S, H, dh], any S >= 1, dh in {16, 32, 64}; u: float32 [H, dh].
+    Returns out [B, S, H, dh] float32, and with ``return_state`` (out,
+    final state [B, H, dh, dh] float32).
+
+    CPU tensors run :func:`rwkv_scan_plain` on r, k and v cast to float32
+    (exact from bf16); CUDA tensors launch the kernels
+    (:func:`kernel_launches`), which read r, k, v and w through their
+    strides (the head dim contiguous) and in their own dtype. Anything else
+    raises ``ValueError``."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
-        out, state = rwkv_scan_plain(r, k, v, w, u)
+        out, state = rwkv_scan_plain(r.float(), k.float(), v.float(), w, u)
         return (out, state) if return_state else out
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(3) != 1:
@@ -113,11 +265,21 @@ def rwkv_scan(r, k, v, w, u, return_state: bool = False):
     state = (torch.empty((B, H, dh, dh), dtype=torch.float32,
                          device=r.device) if return_state else None)
     lib = load_library()
+    n_launches = ctypes.c_int(0)
     with torch.cuda.device(r.device):
+        # scratch of the carry across groups: each group's state (then the
+        # state entering the next) and its decay
+        n_carry = B * H * (groups(B, H, S) - 1) * dh
+        carry = torch.empty(n_carry * (dh + 1), dtype=torch.float32,
+                            device=r.device) if n_carry else None
         err = lib.rwkv_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), out.data_ptr(),
-            state.data_ptr() if return_state else None, B, S, H, dh,
+            state.data_ptr() if return_state else None,
+            carry.data_ptr() if n_carry else None,
+            carry[n_carry * dh:].data_ptr() if n_carry else None,
+            ctypes.byref(n_launches), B, S, H, dh,
+            int(r.dtype == torch.bfloat16),
             r.stride(0), r.stride(1), r.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -127,7 +289,7 @@ def rwkv_scan(r, k, v, w, u, return_state: bool = False):
         msg = lib.rwkv_scan_error_string(err).decode()
         raise RuntimeError(f"rwkv_scan launch failed: CUDA error {err} "
                            f"({msg})")
-    rwkv_scan.launches += 1
+    rwkv_scan.launches += n_launches.value
     return (out, state) if return_state else out
 
 

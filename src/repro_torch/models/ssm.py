@@ -102,14 +102,14 @@ def _rwkv_out(params, wkv, g, cfg: ModelConfig):
 def rwkv_time_mix_scan(params, x, cfg: ModelConfig, use_kernel: bool):
     """The time mix over a full sequence from a zero state, returning
     (y, final state [B,H,dh,dh] float32), as the reference's ssm prefill
-    computes them. Both routes cast r, k, v to float32 for the scan."""
+    computes them. The scan is in float32: K4 reads r, k and v in x's dtype
+    (bf16 -> float32 is exact), the plain route casts them first."""
     r, k, v, w, g = _rwkv_inputs(params, x, token_shift(x), cfg)
     u = params["u"].float()
-    r, k, v = r.float(), k.float(), v.float()
     if use_kernel:
         wkv, state = rwkv_scan(r, k, v, w, u, return_state=True)
     else:
-        wkv, state = rwkv_recurrence(r, k, v, w, u)
+        wkv, state = rwkv_recurrence(r.float(), k.float(), v.float(), w, u)
     return _rwkv_out(params, wkv.to(x.dtype), g, cfg), state
 
 

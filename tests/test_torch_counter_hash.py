@@ -122,6 +122,28 @@ def test_kernels_match_numpy_reference_ragged(R, S, W, rng):
         wantz, ops.forecast_z_ref(fold, rows, 777, std))
 
 
+# K2's row tiling and column walk: R, W, first row key, now (as
+# chip_smoke.py's K2_CASES, cut in R for the CPU)
+K2_EDGE_CASES = [
+    (4099, 60, 0, 777),                # the main path's d_max, R ragged
+    (1001, 61, 0, 777),                # W 61: R * W not a multiple of 4
+    (1001, 64, 0, 777),                # R off the 64-row tile
+    (517, 60, 2 ** 63 + 12_345, 777),  # row keys >= 2^63
+    (256, 60, 0, 2 ** 44 - 3),         # now << 20 wraps past 2^64
+    (9, 4097, 0, 5),                   # W past one tile's cells
+]
+
+
+@pytest.mark.parametrize("R,W,row0,now", K2_EDGE_CASES)
+def test_forecast_z_edge_cases_match_numpy(R, W, row0, now):
+    rows = np.uint64(row0) + np.arange(R, dtype=np.uint64)
+    fold = _U64(0x9E3779B97F4A7C15)
+    std = _std(W)
+    want = NP.forecast_noise_z(fold, rows, now, W, std)
+    for got in _port_forecast(fold, rows, now, std):
+        np.testing.assert_array_equal(want, got)
+
+
 def test_cuda_backend_ticks_once_per_window_and_records_shapes(rng):
     bk = CudaBackend(device="cpu")
     levels, slot, rows = _grid_case(rng, 33, 4, 9)
@@ -223,3 +245,23 @@ def test_kernels_match_plain_on_card(R, S, W):
     assert torch.equal(z, ch.forecast_z_plain(fold, rw, 777, sd))
     np.testing.assert_array_equal(
         z.cpu().numpy(), NP.forecast_noise_z(fold, rows, 777, W, _std(W)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W,row0,now", K2_EDGE_CASES)
+def test_forecast_z_edge_cases_on_card(R, W, row0, now):
+    """K2 launched on the card at its tiling and walk edges equals its
+    plain version on the card and the NumPy reference on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows = np.uint64(row0) + np.arange(R, dtype=np.uint64)
+    fold = _U64(0x9E3779B97F4A7C15)
+    dev = torch.device("cuda:0")
+    rw, sd = _t(rows).to(dev), _t(_std(W)).to(dev)
+    n0 = ch.forecast_z.launches
+    z = ch.forecast_z(fold, rw, now, sd)
+    torch.cuda.synchronize()
+    assert ch.forecast_z.launches == n0 + 1
+    assert torch.equal(z, ch.forecast_z_plain(fold, rw, now, sd))
+    np.testing.assert_array_equal(
+        z.cpu().numpy(), NP.forecast_noise_z(fold, rows, now, W, _std(W)))

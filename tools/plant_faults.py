@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's K3, model, K4, rwkv, K5 and moe checks on copies of
-the tree, each with one planted fault, to show where each check's
-tolerance sits.
+"""Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5 and moe
+checks on copies of the tree, each with one planted fault, to show where
+each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
@@ -57,14 +57,42 @@ FAULTS = {
         "src/repro_torch/csrc/flash_attention.cu",
         "ok = ok && kpos <= qpos;", "ok = ok && kpos < qpos;",
         ("k3", "model")),
-    "k4_no_bonus": (
+    "k2_premix_of_neighbouring_row": (
+        "src/repro_torch/csrc/counter_hash.cu",
+        "row_h[i] = sm64(rows[r0 + i] ^ fold);",
+        "row_h[i] = sm64(rows[r0 + ((i ^ 1) < n_rows ? i ^ 1 : i)] ^ fold);",
+        ("kernels",)),
+    "k2_walk_wraps_one_column_early": (
+        "src/repro_torch/csrc/counter_hash.cu",
+        "if (++cc == W) {", "if (++cc == W - 1) {", ("kernels",)),
+    "k4_state_not_carried": (
+        # each chunk of a group starts from its own contribution alone
         "src/repro_torch/csrc/rwkv_scan.cu",
-        "acc[e] += rr[e] * (s[i] + uu[e] * kv);",
-        "acc[e] += rr[e] * s[i];", ("k4", "rwkv")),
-    "k4_decay_after_kv": (
+        "float4 st = *reinterpret_cast<float4*>(sS + o);",
+        "float4 st = make_float4(0.f, 0.f, 0.f, 0.f);",
+        ("k4", "rwkv")),
+    "k4_group_state_not_carried": (
+        # the state entering a group is the previous group's own alone
         "src/repro_torch/csrc/rwkv_scan.cu",
-        "s[i] = ww[e] * s[i] + kv;",
-        "s[i] = ww[e] * (s[i] + kv);", ("k4", "rwkv")),
+        "s = p.carry_decay[slot * dh + i] * s + *x;", "s = *x;",
+        ("k4", "rwkv")),
+    "k4_group_decay_off_by_one": (
+        # a group's keys decayed by their own step too
+        "src/repro_torch/csrc/rwkv_scan.cu",
+        ("        sk[t * LD + tid] *= pow2(suffix);\n"
+         "        suffix += sL[t * LD + tid];",),
+        ("        suffix += sL[t * LD + tid];\n"
+         "        sk[t * LD + tid] *= pow2(suffix);",), ("k4", "rwkv")),
+    "k4_ragged_last_chunk_dropped": (
+        "src/repro_torch/csrc/rwkv_scan.cu",
+        "for (int t0 = t_begin; t0 < t_end; t0 += kT) {",
+        "for (int t0 = t_begin; t0 + kT <= t_end; t0 += kT) {",
+        ("k4", "rwkv")),
+    "k4_decay_anchor_off_by_one": (
+        # the queries' anchor one token late, the keys' where it was
+        "src/repro_torch/csrc/rwkv_scan.cu",
+        "pow2(lprev - sL[((t / kSub) * kSub - 1) * LD + c]);",
+        "pow2(lprev - sL[((t / kSub) * kSub) * LD + c]);", ("k4", "rwkv")),
     "decode_stale_shift": (
         "src/repro_torch/models/ssm.py",
         "return y, state._replace(shift=x[:, 0], S=S_new)",
@@ -101,7 +129,8 @@ FAULTS = {
         "sorted_e * (G * C) + grp * C + rank",
         "sorted_e * ((G - 1) * C) + grp * C + rank", ("moe",)),
 }
-KEEP = ("case", "dtype", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
+KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
+        "logit_mean", "finite", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
         "variant", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
         "err_over_limit_state", "k4_launches", "k4_vs_plain",
         "decode_vs_prefill", "state_vs_prefill", "f32_k4_vs_plain",
@@ -144,7 +173,8 @@ def run(name: str, phase: str) -> dict:
         if not line.startswith("{"):
             continue
         rec = json.loads(line)
-        if rec.get("phase") in ("kernel", "model", "rwkv", "moe"):
+        if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
+                                "moe"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,
