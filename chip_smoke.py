@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs eleven phases, each printing
+source, all started together) and then runs twelve phases, each printing
 JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -34,7 +34,21 @@ JSON lines:
    then the same on the NumPy backend: round results and total energy
    must be identical, and both kernels must have launched on the
    ``cuda`` run.
-5. ``kernel`` for K3 ``flash_attention`` — against its plain PyTorch
+5. ``service`` — the always-on scheduling service (``repro_torch.service``)
+   at the reference's service-load settings (``SERVICE``, from
+   ``benchmarks/service_load.py``): ``1m_service``, one million clients,
+   in-process, on ``cuda`` with the launch counts and the dispatch ledger
+   set to 0 just before and read just after, then on NumPy; then
+   ``1m_service_faults``, the same mix through two spawned worker
+   processes under ``SERVICE_FAULTS``, on ``cuda`` and then on NumPy.
+   Admission histories and counters must be identical across backends;
+   K1 and K2 must launch on the ``cuda`` runs, the faulted run must see a
+   worker crash and as many restarts, and each worker must report
+   ``cuda:0`` and K1 launches of its own. Per backend: set-up, warm-up and
+   window seconds, decisions/s, p50/p99/max ms, the dispatch counts,
+   peak device memory, and peak RSS of the service process and of its
+   workers (sampled from ``/proc`` while the run lasts).
+6. ``kernel`` for K3 ``flash_attention`` — against its plain PyTorch
    version on the card, element by element within ``ATTN_TOL`` (below),
    at the llama3.2-3b prefill shape (B 4, H 32, KV 8, S = Sk = 2048,
    dh 128, in the [B, S, H, dh] layout the model passes, bf16 and f32),
@@ -47,7 +61,7 @@ JSON lines:
    and ``scaled_dot_product_attention`` ms over CUDA events, the bound,
    TFLOP/s, and in bf16 the floor of the work K3 issues (P V on both parts
    of P, the diagonal tiles whole).
-6. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
+7. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. The launch counts are set to 0 just before
    this run and read just after (K3 must launch once per layer of the
@@ -59,7 +73,7 @@ JSON lines:
    other side's maximum; and the K/V cache that ``decode_step`` leaves
    against the one ``prefill(S)`` builds, within ``CACHE_TOL`` at the
    slot the step wrote and at the slots before it.
-7. ``kernel`` for K4 ``rwkv_scan`` — against its plain PyTorch version on
+8. ``kernel`` for K4 ``rwkv_scan`` — against its plain PyTorch version on
    the card, element by element within ``K4_TOL`` (below), for the output
    and the final state, each finite, with inputs made as the model makes
    them (w = exp(-exp(logit)), logit around -0.5 ± 0.6) at ``K4_CASES``:
@@ -70,7 +84,7 @@ JSON lines:
    32-token chunk), S 129 and 300 (several groups, at the weak decay), and
    dh 32 and 16 with small B and H. At the prefill shape, in both dtypes,
    and at batch 1: K4 and plain ms over CUDA events, and the bound.
-8. ``rwkv`` — rwkv6-1.6b at full width in bf16 on ``cuda:0`` through
+9. ``rwkv`` — rwkv6-1.6b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. K4's count is set to 0 just before this run and
    read just after (one launch per prefill layer: 24, one group a stream).
@@ -78,10 +92,10 @@ JSON lines:
    weights: the last-position logits of the K4 route against the plain
    route (the per-token recurrence), and ``decode_step`` after
    ``prefill(S - 1)`` against ``prefill(S)``, each within
-   ``RWKV_LOGIT_TOL`` (as in phase 6); and every state tensor that the
+   ``RWKV_LOGIT_TOL`` (as in phase 7); and every state tensor that the
    decode step leaves (``S``, ``shift``, ``shift_cm``, per layer) against
    prefill(S)'s, within ``RWKV_STATE_TOL``.
-9. ``kernel`` for K5 ``moe_gemm`` — against its plain version on the card,
+10. ``kernel`` for K5 ``moe_gemm`` — against its plain version on the card,
    element by element within ``K5_TOL`` (below): mixtral-8x22b's prefill
    expert products in bf16 ([8, 2560, 6144]·[8, 6144, 16384] and
    [8, 2560, 16384]·[8, 16384, 6144]: 32 groups of 256 tokens at capacity
@@ -98,7 +112,7 @@ JSON lines:
    failing one stops the phase. Then ``k5_crossover`` lines: both bf16
    kernels, named, at C 8–64 at mixtral's two expert shapes, each held to
    the plain version, with ``torch.bmm``'s ms beside them.
-10. ``moe`` — mixtral-8x22b at full width and 8 of its 56 layers in bf16 on
+11. ``moe`` — mixtral-8x22b at full width and 8 of its 56 layers in bf16 on
    ``cuda:0`` through the inference demo's ``load_model`` and
    ``generate``: batch 4, prompt 2048, 16 greedy tokens. K3's and K5's
    counts are set to 0 just before this run and read just after (K5: three
@@ -115,7 +129,7 @@ JSON lines:
    published factor the two prefills group, and so drop, differently);
    and the K5 route against the einsum route, whole model, in float32 on
    a 2-layer full-width copy of the same weights, within ``MOE_F32_TOL``.
-11. ``kimi`` — kimi-k2-1t-a32b at full width and 1 of its 61 layers in bf16
+12. ``kimi`` — kimi-k2-1t-a32b at full width and 1 of its 61 layers in bf16
    on ``cuda:0`` through ``load_model`` and ``generate``: batch 4, prompt
    2048, 4 greedy tokens. K3's and K5's counts are set to 0 just before
    this run and read just after (K3 at dh 112: one launch per prefill
@@ -132,19 +146,22 @@ exits non-zero before the last line. Without a CUDA device, or outside
 a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
-``main_path`` (4), ``k3`` (5), ``model`` (6), ``k4`` (7), ``rwkv`` (8),
-``k5`` (9), ``moe`` (10) and ``kimi`` (11), after ``env``, and then stops
-without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is the quick
-check of a new K3, K4 or K5 build.
+``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
+``rwkv`` (9), ``k5`` (10), ``moe`` (11) and ``kimi`` (12), after ``env``,
+and then stops without the closing lines: ``--phases k3``, ``k4`` or
+``k5`` is the quick check of a new K3, K4 or K5 build, ``--phases
+service`` runs the service alone.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -243,8 +260,17 @@ MIXTRAL = dict(arch="mixtral-8x22b", n_layers=8, batch=4, prompt=2048,
 # kimi-k2-1t-a32b at full width, 1 of its 61 layers: 384 experts are 33.8
 # GB a layer, the embedding and head 4.7 GB
 KIMI = dict(arch="kimi-k2-1t-a32b", n_layers=1, batch=4, prompt=2048, gen=4)
-PHASES = ("kernels", "ops", "main_path", "k3", "model", "k4", "rwkv", "k5",
-          "moe", "kimi")
+# the always-on service at the reference's service-load settings
+# (benchmarks/service_load.py:78-93, run_service_load at :111-131): the
+# sparse, greedy FedZero service over the "global" scenario, one day,
+# seed 0, no trainer, no event log; the clock advanced WARMUP_STEPS into
+# daylight and one admission priced before the measured window
+SERVICE = dict(clients=1_000_000, steps=15, churn=0.01, admits_per_step=1,
+               quotes_per_step=250, n=10, d_max=30, seed=0, warmup_steps=240)
+SERVICE_FAULTS = ("crash=0.005,dropout=0.05,straggler=0.05,delay=0.2,"
+                  "loss=0.05,seed=64")
+PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
+          "rwkv", "k5", "moe", "kimi")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -596,7 +622,7 @@ def check_ops(torch, bk, host):
 
 
 # --------------------------------------------------------------------------
-# phase 5: K3 flash attention
+# phase 6: K3 flash attention
 
 
 def attn_case(torch, gen, B, H, KV, S, Sk, dh, dtype):
@@ -701,7 +727,7 @@ def k3_issued_flops(B, H, S, Sk, dh, causal, window, tile=128):
 
 
 # --------------------------------------------------------------------------
-# phase 6: llama3.2-3b inference
+# phase 7: llama3.2-3b inference
 
 
 def logits_agree(torch, a, b, rel_tol=LOGIT_TOL):
@@ -811,7 +837,7 @@ def run_model(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 7: K4 rwkv scan
+# phase 8: K4 rwkv scan
 
 
 def scan_case(torch, gen, B, S, H, dh, logit_mean=-0.5):
@@ -917,7 +943,7 @@ def check_rwkv_scan(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 8: rwkv6-1.6b inference
+# phase 9: rwkv6-1.6b inference
 
 
 def both_routes(torch, model, prompts, cache_len):
@@ -1037,7 +1063,7 @@ def run_rwkv(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 9: K5 moe_gemm
+# phase 10: K5 moe_gemm
 
 
 def check_moe_gemm(torch):
@@ -1154,7 +1180,7 @@ def check_k5_crossover(torch, k5, gen):
 
 
 # --------------------------------------------------------------------------
-# phase 10: mixtral-8x22b inference
+# phase 11: mixtral-8x22b inference
 
 
 def rel_max(a, b):
@@ -1382,7 +1408,7 @@ def run_moe(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 11: kimi-k2-1t-a32b inference (d_head 112 on K3)
+# phase 12: kimi-k2-1t-a32b inference (d_head 112 on K3)
 
 
 def run_kimi(torch):
@@ -1547,6 +1573,201 @@ def run_scheduler(torch, cuda_bk, args):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 5: the service, 1m_service and 1m_service_faults
+
+
+def service_config(backend, executor="inprocess", workers=1, faults=""):
+    from repro_torch.core import (ExperimentConfig, FleetSection, RunSection,
+                                  ScenarioSection, ServiceSection,
+                                  StrategySection)
+    from repro_torch.service import FaultPlan
+    sv = SERVICE
+    return ExperimentConfig(
+        scenario=ScenarioSection(name="global", days=1, seed=sv["seed"],
+                                 util_mode="sparse"),
+        fleet=FleetSection(n_clients=sv["clients"], seed=sv["seed"]),
+        strategy=StrategySection(name="fedzero", n=sv["n"],
+                                 d_max=sv["d_max"], seed=sv["seed"],
+                                 options={"solver": "greedy"}),
+        run=RunSection(backend=backend),
+        service=ServiceSection(seed=sv["seed"], record_log=False,
+                               executor=executor, workers=workers,
+                               faults=FaultPlan.parse(faults) if faults
+                               else None))
+
+
+class RssPeak:
+    """Resident memory, in MB, of this process (at the start and at its
+    peak) and the peak of its child processes' sum (the service's
+    workers), sampled from ``/proc`` every ``period`` seconds while the
+    ``with`` block runs. Some kernels list a child's threads beside it
+    among the children: only thread-group leaders are counted."""
+
+    def __init__(self, period=0.05):
+        self.period = period
+        self.start_mb = self.parent_mb = self.children_mb = 0.0
+
+    @staticmethod
+    def _status(pid):
+        try:
+            lines = Path(f"/proc/{pid}/status").read_text().splitlines()
+        except OSError:
+            return {}
+        return dict(ln.split(":", 1) for ln in lines if ":" in ln)
+
+    @staticmethod
+    def _rss_mb(status):
+        return int(status.get("VmRSS", "0 kB").split()[0]) / 1024.0
+
+    def _sample(self):
+        me = os.getpid()
+        kids = set()
+        for f in Path(f"/proc/{me}/task").glob("*/children"):
+            try:
+                kids.update(int(p) for p in f.read_text().split())
+            except OSError:
+                pass
+        mine = self._rss_mb(self._status(me))
+        self.start_mb = self.start_mb or mine
+        self.parent_mb = max(self.parent_mb, mine)
+        status = {k: self._status(k) for k in kids}
+        self.children_mb = max(self.children_mb, sum(
+            self._rss_mb(st) for k, st in status.items()
+            if st.get("Tgid", "").strip() == str(k)))
+
+    def _loop(self):
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self):
+        self._stop = threading.Event()
+        self._sample()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
+def run_service_load(torch, cfg):
+    """``benchmarks/service_load.py``'s ``run_service_load`` on the port:
+    build the service, advance into daylight and price one admission
+    (warm-up), then drive the measured window with ``run_synthetic``.
+    Returns the service (closed), the window's snapshot and its times."""
+    from repro_torch.service import build_service, run_synthetic
+    sv = SERVICE
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t = time.perf_counter()
+        svc = build_service(cfg, trainer=None)
+        setup = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            svc.advance(sv["warmup_steps"])
+            svc.admit()
+            warmup = time.perf_counter() - t
+            svc.metrics.reset()
+            t = time.perf_counter()
+            snap = run_synthetic(svc, steps=sv["steps"], churn=sv["churn"],
+                                 admits_per_step=sv["admits_per_step"],
+                                 quotes_per_step=sv["quotes_per_step"],
+                                 seed=sv["seed"] + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            svc.close()
+    return svc, snap, {
+        "setup_s": setup, "warmup_s": warmup, "wall_s": wall,
+        "decisions": snap["admit_requests"] + snap["quote_requests"],
+        "decisions_per_sec": snap["decisions_per_sec"],
+        "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+        "max_ms": snap["max_ms"], "admitted": snap["admitted"],
+        "rejected": snap["rejected"],
+        "backend_dispatches": snap.get("backend_dispatches"),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "rss_start_mb": rss.start_mb, "peak_rss_mb": rss.parent_mb,
+        "workers_peak_rss_mb": rss.children_mb}
+
+
+def same_service_run(a, b):
+    """Identical admission histories and identical counters (every
+    counter of the metrics reads no clock)."""
+    return (len(a.history) == len(b.history)
+            and all((x is None and y is None)
+                    or (x is not None and y is not None
+                        and np.array_equal(x, y))
+                    for x, y in zip(a.history, b.history))
+            and a.metrics.counters == b.metrics.counters)
+
+
+def run_service(torch, cuda_bk, host):
+    """1m_service in-process on ``cuda`` (counts from zero, read right
+    after), then on NumPy; then 1m_service_faults through two spawned
+    workers on ``cuda`` (each on ``cuda:0``, reporting its device and
+    K1/K2 launches), then on NumPy. Histories and counters must be
+    identical across the backends; K1 and K2 must launch on the ``cuda``
+    runs, and K1 in each worker."""
+    from repro_torch.kernels import counter_hash as ch
+    t0 = time.perf_counter()
+    out = {}
+    for name, kw in (("1m_service", {}),
+                     ("1m_service_faults", dict(executor="multiprocess",
+                                                workers=2,
+                                                faults=SERVICE_FAULTS))):
+        runs = {}
+        for backend, bk in (("cuda", cuda_bk), ("numpy", host)):
+            bk.reset_dispatch_counts()
+            ch.piece_window.launches = 0
+            ch.forecast_z.launches = 0
+            svc, snap, row = run_service_load(torch,
+                                              service_config(backend, **kw))
+            row["kernel_launches"] = {"piece_window": ch.piece_window.launches,
+                                      "forecast_z": ch.forecast_z.launches}
+            for k in ("worker_crashes", "worker_restarts", "shard_retries",
+                      "client_dropouts", "stragglers_injected",
+                      "reports_delayed", "reports_lost", "rounds_degraded",
+                      "engine_builds", "engine_reuses", "engine_memo_hits",
+                      "engine_deactivations", "engine_compactions"):
+                row[k] = snap[k]
+            for k in ("worker_devices", "worker_kernel_launches"):
+                if k in snap:
+                    row[k] = snap[k]
+            runs[backend] = (svc, row)
+        (c_svc, c_row), (n_svc, n_row) = runs["cuda"], runs["numpy"]
+        same = same_service_run(c_svc, n_svc)
+        emit("service", config=name, settings={**SERVICE, **kw},
+             identical=same, cuda=c_row, numpy=n_row,
+             ratio_decisions_per_sec=(c_row["decisions_per_sec"]
+                                      / n_row["decisions_per_sec"]))
+        require(same, f"{name}: cuda history or counters differ from numpy")
+        require(c_row["admitted"] > 0, f"{name}: nothing admitted")
+        launches = c_row["kernel_launches"]
+        require(launches["forecast_z"] > 0,
+                f"{name}: K2 never launched on cuda: {launches}")
+        if not kw:
+            require(launches["piece_window"] > 0,
+                    f"{name}: K1 never launched on cuda: {launches}")
+        else:
+            require(c_row["worker_crashes"] >= 1
+                    and c_row["worker_restarts"] == c_row["worker_crashes"],
+                    f"{name}: crashes/restarts {c_row['worker_crashes']}/"
+                    f"{c_row['worker_restarts']}")
+            devs = c_row.get("worker_devices", {})
+            k1 = c_row.get("worker_kernel_launches", {})
+            require(sorted(devs) == [0, 1]
+                    and all(d == "cuda:0" for d in devs.values()),
+                    f"{name}: worker devices {devs}")
+            require(all(k1[w]["piece_window"] > 0 for w in devs),
+                    f"{name}: K1 never launched in a worker: {k1}")
+        out[name] = c_row
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--clients", type=int, default=1_000_000)
@@ -1607,6 +1828,9 @@ def main(argv=None) -> int:
              s=time.perf_counter() - t)
     if "main_path" in phases:
         launches = run_scheduler(torch, cuda_bk, args)
+    if "service" in phases:
+        service = run_service(torch, cuda_bk, host)
+        emit("service_phase", s=service["s"])
     if "k3" in phases:
         attn = check_flash_attention(torch)
     if "model" in phases:

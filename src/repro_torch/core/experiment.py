@@ -149,8 +149,8 @@ class RunSection:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServiceSection:
-    """Always-on scheduling service knobs (:mod:`repro.service`) — how
-    :func:`repro.service.build_service` turns this experiment into a
+    """Always-on scheduling service knobs (:mod:`repro_torch.service`) — how
+    :func:`repro_torch.service.build_service` turns this experiment into a
     continuously-running scheduler instead of a batch loop. The batch
     entrypoints (:func:`run_experiment` / :func:`run_sweep`) ignore this
     section entirely.
@@ -163,7 +163,7 @@ class ServiceSection:
     persistent worker processes — summary-identical to in-process when
     fault-free; ``"none"`` leaves round reporting to the caller — the
     replay path). ``faults`` optionally carries a
-    :class:`repro.service.faults.FaultPlan` for deterministic fault
+    :class:`repro_torch.service.faults.FaultPlan` for deterministic fault
     injection (typed loosely here to keep core free of service
     imports). ``incremental`` toggles the admission cache (engine reuse +
     deactivation + backend ``reach_state_subset``); ``False`` prices
@@ -193,7 +193,7 @@ class ExperimentConfig:
     trainer × run. Sections default sensibly, so
     ``ExperimentConfig(strategy=StrategySection(name="oort"))`` is a
     complete experiment. The optional ``service`` section only matters
-    to :func:`repro.service.build_service` (the always-on scheduler);
+    to :func:`repro_torch.service.build_service` (the always-on scheduler);
     batch runs ignore it."""
 
     scenario: ScenarioSection = dataclasses.field(
@@ -241,10 +241,24 @@ def config_from_reference(d: Dict) -> ExperimentConfig:
     follow from the config's seeds, so carrying the config carries the
     whole state of a run. Each section's fields are taken as they are
     (arrays, tuples, options), and a field this package does not know
-    raises ``TypeError``."""
-    return ExperimentConfig(**{name: cls(**d[name])
-                               for name, cls in _SECTIONS.items()
-                               if name in d})
+    raises ``TypeError``. ``asdict`` flattens the service section's
+    ``faults`` (a reference ``FaultPlan``, its ``RetryPolicy`` within) to
+    a dict: it is rebuilt as this package's
+    :class:`~repro_torch.service.faults.FaultPlan`, and ``None`` stays
+    ``None``."""
+    secs = {name: dict(d[name]) for name in _SECTIONS if name in d}
+    faults = secs.get("service", {}).get("faults")
+    if isinstance(faults, dict):
+        # imported here: core imports nothing of the service at load
+        from ..service.faults import FaultPlan, RetryPolicy
+        faults = dict(faults)
+        if isinstance(faults.get("retry"), dict):
+            faults["retry"] = RetryPolicy(**faults["retry"])
+        faults["crash_schedule"] = tuple(
+            tuple(int(k) for k in c) for c in faults.get("crash_schedule", ()))
+        secs["service"]["faults"] = FaultPlan(**faults)
+    return ExperimentConfig(**{name: _SECTIONS[name](**kw)
+                               for name, kw in secs.items()})
 
 
 # ---------------------------------------------------------------------------

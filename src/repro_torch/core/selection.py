@@ -1129,7 +1129,7 @@ def select_clients(inp: SelectionInputs, n: int, d_max: int,
 
     ``engine`` / ``cache`` / ``model`` let a caller that prices many
     requests against the *same* inputs (the always-on service,
-    :mod:`repro.service`) reuse the per-round evaluation state across
+    :mod:`repro_torch.service`) reuse the per-round evaluation state across
     calls instead of rebuilding it: a held :class:`_LazyGreedy` for lazy
     inputs, a :class:`_ProbeCache` (+ :class:`_WarmMip`) for
     materialized ones. All per-probe state is keyed by duration and

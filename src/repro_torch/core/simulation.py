@@ -49,7 +49,7 @@ def execute_round(registry: ClientRegistry, scenario: ScenarioStore,
     ``sel.rows``; spec fields and domain rows are gathered once per
     round, so the per-minute loop does pure array ops (no identity
     lookups of any kind). :class:`FLSimulation` delegates here, and the
-    always-on service's round executor (:mod:`repro.service`) calls it
+    always-on service's round executor (:mod:`repro_torch.service`) calls it
     directly — both produce identical :class:`RoundResult`\\ s for the
     same arguments, which is what lets rounds execute decoupled from the
     batch loop. Semantically identical to the dict-of-state
@@ -61,7 +61,7 @@ def execute_round(registry: ClientRegistry, scenario: ScenarioStore,
     ``need_done``) caps how many finishers count as contributors.
 
     ``drop_step`` / ``speed`` are the service's fault-injection hooks
-    (:mod:`repro.service.faults`), both aligned with ``sel.rows``:
+    (:mod:`repro_torch.service.faults`), both aligned with ``sel.rows``:
     a client with ``drop_step[i] >= 0`` computes nothing from that step
     on (mid-round dropout — its partial work still counts toward energy,
     like any straggler's), and ``speed`` scales each client's effective
@@ -265,7 +265,7 @@ def merge_round_shards(sel: Selection, shards: List[Dict], now: int,
     surface as stragglers, never count toward the early-finish quorum,
     and the round runs to the full window. The executor layers the
     zero-utility σ/blocklist bookkeeping for those rows on top of this
-    (see :mod:`repro.service.executors`).
+    (see :mod:`repro_torch.service.executors`).
     """
     rows = np.asarray(sel.rows, dtype=int)
     n_sel = rows.size

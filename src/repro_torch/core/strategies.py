@@ -337,7 +337,7 @@ class FedZeroStrategy(BaseStrategy):
                           sigma: np.ndarray, excess_fc: np.ndarray):
         """This strategy's solver inputs over ``cand`` — delegates to the
         module-level :func:`fedzero_selection_inputs` so the always-on
-        service (:mod:`repro.service`) prices admissions through the
+        service (:mod:`repro_torch.service`) prices admissions through the
         byte-identical construction."""
         return fedzero_selection_inputs(
             env, cand, sigma, excess_fc, registry=self.registry,
@@ -363,7 +363,7 @@ def fedzero_selection_inputs(env: EnvView, cand: np.ndarray,
 
     The single construction path shared by :class:`FedZeroStrategy` and
     the always-on service's admission layer
-    (:mod:`repro.service.admission`): given the same environment view,
+    (:mod:`repro_torch.service.admission`): given the same environment view,
     candidate set and σ, both produce byte-identical inputs — the
     foundation of the service's batch-parity contract. ``sharded=None``
     auto-picks the lazy path for the greedy solver over a sparse-util

@@ -90,7 +90,7 @@ class RoundResult:
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServiceEvent:
     """One record of the always-on scheduler's request log
-    (:mod:`repro.service`). The log is the service's determinism
+    (:mod:`repro_torch.service`). The log is the service's determinism
     contract: replaying the same event sequence against a fresh service
     instance — or against the from-scratch batch engine — must produce
     bit-identical admissions (see docs/service.md).

@@ -145,7 +145,9 @@ def test_port_imports_neither_jax_nor_reference():
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "for m in ('repro_torch.backend.cuda_backend',\n"
-        "          'repro_torch.models.moe', 'repro_torch.kernels.moe_gemm'):\n"
+        "          'repro_torch.models.moe', 'repro_torch.kernels.moe_gemm',\n"
+        "          'repro_torch.service.engine',\n"
+        "          'repro_torch.service.executors'):\n"
         "    assert m in sys.modules, m\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
