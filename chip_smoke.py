@@ -5,8 +5,8 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs twelve phases, each printing
-JSON lines:
+source, all started together) and then runs thirteen phases, each
+printing JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, the kernels' build time and the compiler's register
@@ -136,6 +136,28 @@ JSON lines:
    layer; K5 three per layer and step). Then the last-position logits of
    the K3/K5 route against the einsum route on the same weights, within
    ``LOGIT_TOL``.
+13. ``train`` — federated training of the paper's models (``TRAIN_RUNS``:
+   ConvNet, KWT-1 and the LSTM at their published widths) with TF32 off.
+   First the guard of the kernels without a backward: K3, K4 and K5, and
+   ``DecoderLM.loss`` of a reduced dense config on the kernel route, must
+   raise on CUDA inputs that require grad; on the reference's route the
+   loss's gradients must equal the CPU's within ``GRAD_TOL``. Then per
+   model: its synthetic task is built once for 100 clients; a
+   ``TorchTrainer`` on ``cuda:0`` and one on the CPU from the same weights
+   and seed run 3 local updates of 30 steps, ``aggregate`` and
+   ``evaluate``, and must agree within ``TRAIN_TOL`` (the global model's
+   logits, every step's loss, the probes' per-sample losses, every
+   aggregated parameter) and ``TRAIN_ACC_TOL``; then the paper's loop on
+   the card, ``build_experiment`` + ``FLSimulation.run`` on
+   ``backend="cuda"`` (``global``, 100 clients, FedZero, n 10, d_max 60,
+   30 steps a round at most, evaluated every round) with the
+   ``TorchTrainer`` in the trainer section and the fleet retuned to the
+   shard sizes. K1/K2's counts are set to 0 just before the run and read
+   just after. Per run: seconds a round, split into scheduling and
+   training, local steps/s and samples/s, train loss and accuracy per
+   round, peak device memory; every loss and accuracy must be finite, the
+   last round's train loss below the first's, and the model on
+   ``cuda:0``.
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -147,10 +169,11 @@ a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
-``rwkv`` (9), ``k5`` (10), ``moe`` (11) and ``kimi`` (12), after ``env``,
-and then stops without the closing lines: ``--phases k3``, ``k4`` or
-``k5`` is the quick check of a new K3, K4 or K5 build, ``--phases
-service`` runs the service alone.
+``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12) and ``train`` (13),
+after ``env``, and then stops without the closing lines: ``--phases k3``,
+``k4`` or ``k5`` is the quick check of a new K3, K4 or K5 build,
+``--phases service`` runs the service alone, ``--phases train`` the
+federated training alone.
 """
 from __future__ import annotations
 
@@ -269,8 +292,34 @@ SERVICE = dict(clients=1_000_000, steps=15, churn=0.01, admits_per_step=1,
                quotes_per_step=250, n=10, d_max=30, seed=0, warmup_steps=240)
 SERVICE_FAULTS = ("crash=0.005,dropout=0.05,straggler=0.05,delay=0.2,"
                   "loss=0.05,seed=64")
+# federated training of the paper's models at their published widths (the
+# reference's __init__ defaults, src/repro/models/paper_models.py:28, 82,
+# 143), each on the synthetic task it stands in for: name -> (FedZero
+# rounds, SGD learning rate). examples/train_federated.py's lr 0.05 trains
+# the LSTM; the reference's own JaxTrainer diverges at it on the full-width
+# ConvNet and KWT-1 (whose loss turns NaN), and trains them at 0.001 and
+# 0.005 (PERF.md §4)
+TRAIN_RUNS = {"convnet": (10, 0.001), "kwt": (5, 0.005), "lstm": (5, 0.05)}
+# the paper's loop as examples/train_federated.py runs it (FedProx, SGD),
+# scheduled by FedZero over 100 clients; the parity check's local updates
+TRAIN = dict(clients=100, n=10, d_max=60, max_steps=30, batch=10,
+             prox_mu=0.1, seed=0, parity_updates=3)
+# the trainer on the card against the same trainer on the CPU, from the same
+# weights and batches (TF32 off), relative to the largest value of each
+# (per-step losses: to each loss): the global model's logits before
+# training, every step's loss, the probes' per-sample losses and every
+# aggregated parameter after 3 local updates of 30 steps; the accuracies
+# may differ by TRAIN_ACC_TOL. Float32 rounding grows over the steps: sound
+# runs read at most 8.7e-7, 1.9e-5, 4.7e-5 and 3.0e-4 (ConvNet's params),
+# about a tenth of each limit (PERF.md §6)
+TRAIN_TOL = {"logits": 1e-5, "losses": 2e-4, "sample_losses": 5e-4,
+             "params": 3e-3}
+TRAIN_ACC_TOL = 0.01
+# DecoderLM.loss on the reference's route: the card's gradients against the
+# CPU's, each relative to its largest value
+GRAD_TOL = 1e-4
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
-          "rwkv", "k5", "moe", "kimi")
+          "rwkv", "k5", "moe", "kimi", "train")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -1768,6 +1817,263 @@ def run_service(torch, cuda_bk, host):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: federated training of the paper's models
+
+
+def paper_data(name, client_names):
+    """The synthetic task the paper model ``name`` trains on, at the
+    reference's default sizes, over ``client_names``."""
+    from repro_torch.data import federated as fd
+    n = len(client_names)
+    if name == "convnet":
+        return fd.synthetic_classification(n, client_names, n_classes=100,
+                                           hw=32, seed=TRAIN["seed"])
+    if name == "kwt":
+        return fd.synthetic_speech(n, client_names, n_classes=35,
+                                   n_patches=98, seed=TRAIN["seed"])
+    return fd.synthetic_chars(n, client_names, vocab=90, seed=TRAIN["seed"])
+
+
+def paper_trainer(name, data, device):
+    """A ``TorchTrainer`` of the paper model ``name`` at its published
+    widths on ``device``, with ``TRAIN``'s settings."""
+    from repro_torch.core import TorchTrainer
+    from repro_torch.models import ConvNet, KWTModel, LSTMModel
+    model = {"convnet": ConvNet, "kwt": KWTModel,
+             "lstm": LSTMModel}[name](device=device)
+    return TorchTrainer(model, data, lr=TRAIN_RUNS[name][1],
+                        batch_size=TRAIN["batch"], prox_mu=TRAIN["prox_mu"],
+                        seed=TRAIN["seed"],
+                        max_steps_per_round=TRAIN["max_steps"], device=device)
+
+
+def train_parity(torch, name, data):
+    """The trainer on ``cuda:0`` against the same trainer on the CPU, from
+    the card model's weights and the same NumPy seed: the global model's
+    logits, then ``parity_updates`` local updates, ``aggregate`` and
+    ``evaluate`` on each side."""
+    dev = torch.device("cuda:0")
+    card = paper_trainer(name, data, dev)
+    cpu = paper_trainer(name, data, "cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    take = min(card.eval_batch, len(data.test_data["labels"]))
+
+    def first(device):  # the evaluation batch
+        return {k: torch.from_numpy(v[:take]).to(device)
+                for k, v in data.test_data.items()}
+
+    with torch.no_grad():
+        logits = rel_max(card.model.logits_fn(first(dev)).cpu(),
+                         cpu.model.logits_fn(first("cpu")))
+    side = {}
+    for key, tr in (("card", card), ("cpu", cpu)):
+        t = time.perf_counter()
+        ups = [tr.local_update(row, TRAIN["max_steps"])
+               for row in range(TRAIN["parity_updates"])]
+        tr.aggregate(ups)
+        acc = tr.evaluate()
+        side[key] = (ups, acc, time.perf_counter() - t)
+    (cu, cacc, cs), (hu, hacc, hs) = side["card"], side["cpu"]
+    losses = np.max([np.abs(np.subtract(a["losses"], b["losses"]))
+                     / np.abs(b["losses"]) for a, b in zip(cu, hu)])
+    got = {"logits": logits, "losses": float(losses),
+           "sample_losses": float(np.max([
+               rel_max(torch.from_numpy(a["sample_losses"]),
+                       torch.from_numpy(b["sample_losses"]))
+               for a, b in zip(cu, hu)])),
+           "params": float(np.max([rel_max(p.cpu(), cpu.params[n])
+                                   for n, p in card.params.items()]))}
+    over = {k: v / TRAIN_TOL[k] for k, v in got.items()}
+    ok = (all(v <= 1.0 for v in over.values())
+          and abs(cacc - hacc) <= TRAIN_ACC_TOL)
+    emit("train_parity", model=name, steps=[len(u["losses"]) for u in cu],
+         **got, accuracy_card=cacc, accuracy_cpu=hacc,
+         err_over_limit=over, first_losses_card=cu[0]["losses"][:3],
+         card_s=cs, cpu_s=hs, ok=ok)
+    for k, v in over.items():
+        require(not v > 1.0 and v == v,
+                f"{name}: trainer on the card against the CPU, {k} "
+                f"{got[k]} > {TRAIN_TOL[k]}")
+    require(not abs(cacc - hacc) > TRAIN_ACC_TOL,
+            f"{name}: accuracy {cacc} on the card, {hacc} on the CPU")
+
+
+def check_grad_refused(torch):
+    """K3, K4 and K5 have no backward: on CUDA tensors that require grad,
+    each wrapper and ``DecoderLM.loss`` on the kernel route raise; on the
+    reference's route (``use_kernels=False``) the loss's gradients equal
+    the CPU's within ``GRAD_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as k5
+    from repro_torch.kernels import rwkv_scan as k4
+    from repro_torch.models import DecoderLM
+    dev = torch.device("cuda:0")
+
+    def t(*shape):
+        return torch.zeros(shape, device=dev, requires_grad=True)
+
+    calls = {"flash_attention": lambda: fa.flash_attention(
+                 t(1, 4, 16, 64), t(1, 2, 16, 64), t(1, 2, 16, 64)),
+             "rwkv_scan": lambda: k4.rwkv_scan(*(t(1, 16, 2, 64),) * 4,
+                                               t(2, 64)),
+             "moe_gemm": lambda: k5.moe_gemm(t(2, 80, 64), t(2, 64, 32))}
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+    cfg = get_config("smollm-360m", reduced=True)
+    cpu = DecoderLM(cfg, use_kernels=False, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = DecoderLM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+    try:
+        card.loss(batch)
+        refused["DecoderLM.loss"] = False
+    except RuntimeError as e:
+        refused["DecoderLM.loss"] = "use_kernels=False" in str(e)
+    card.use_kernels = False
+    card.loss(batch).backward()
+    cpu.loss({"tokens": toks, "labels": toks}).backward()
+    grads = float(np.max([rel_max(a.grad.cpu(), b.grad)
+                          for a, b in zip(card.parameters(),
+                                          cpu.parameters())]))
+    emit("train_grad_guard", arch=cfg.name, refused=refused,
+         plain_route_grad_vs_cpu=grads, tol=GRAD_TOL)
+    require(all(refused.values()), f"a kernel ran under grad: {refused}")
+    require(not grads > GRAD_TOL and grads == grads,
+            f"plain-route gradients {grads} > {GRAD_TOL} of the CPU's")
+
+
+class TimedTrainer:
+    """A trainer whose calls are timed (each ending in a synchronise) and
+    whose local steps are counted."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner = torch, inner
+        self.s, self.steps = 0.0, 0
+
+    def _timed(self, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        self.torch.cuda.synchronize()
+        self.s += time.perf_counter() - t
+        return out
+
+    def local_update(self, row, n_batches):
+        upd = self._timed(self.inner.local_update, row, n_batches)
+        self.steps += len(upd["losses"])
+        return upd
+
+    def aggregate(self, updates):
+        return self._timed(self.inner.aggregate, updates)
+
+    def evaluate(self):
+        return self._timed(self.inner.evaluate)
+
+
+def train_config(factory, rounds):
+    from repro_torch.core import (ExperimentConfig, FleetSection, RunSection,
+                                  ScenarioSection, StrategySection,
+                                  TrainerSection)
+    tr = TRAIN
+    return ExperimentConfig(
+        scenario=ScenarioSection(name="global", days=7, seed=tr["seed"]),
+        fleet=FleetSection(n_clients=tr["clients"], seed=tr["seed"]),
+        strategy=StrategySection(name="fedzero", n=tr["n"],
+                                 d_max=tr["d_max"], seed=tr["seed"]),
+        trainer=TrainerSection(factory=factory),
+        run=RunSection(max_rounds=rounds, eval_every=1, seed=tr["seed"],
+                       backend="cuda"))
+
+
+def run_fedzero_training(torch, name, rounds):
+    """The paper's loop on the card for one model: ``build_experiment`` +
+    ``FLSimulation.run`` on ``backend="cuda"`` with a ``TorchTrainer`` on
+    ``cuda:0`` in the trainer section, the fleet retuned to the data's
+    shard sizes (examples/train_federated.py). The trainer's parity with
+    the CPU is checked first, on the same data."""
+    from repro_torch.core import (build_experiment, build_registry,
+                                  build_scenario)
+    from repro_torch.kernels import counter_hash as ch
+    dev = torch.device("cuda:0")
+    timed = {}
+
+    def factory(reg):
+        timed["t"] = TimedTrainer(torch, paper_trainer(name, data, dev))
+        return timed["t"]
+
+    cfg = train_config(factory, rounds)
+    t = time.perf_counter()
+    sc = build_scenario(cfg)
+    reg = build_registry(cfg, sc)
+    data = paper_data(name, reg.client_names)
+    for c in reg.client_names:  # retune the fleet to the shard sizes
+        reg.clients[c].n_samples = data.n_samples(c)
+        reg.clients[c].batches_per_epoch = max(1, data.n_samples(c) // 10)
+    reg.refresh_arrays()
+    data_s = time.perf_counter() - t
+    train_parity(torch, name, data)
+    sim = build_experiment(cfg, scenario=sc, registry=reg)
+    trainer = timed["t"]
+    # the main path: counts from zero, driven once, read right after
+    ch.piece_window.launches = 0
+    ch.forecast_z.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    summary = sim.run(max_rounds=rounds)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = {"piece_window": ch.piece_window.launches,
+                "forecast_z": ch.forecast_z.launches}
+    n_rounds = len(sim.results)
+    losses = [r.train_loss for r in sim.results]
+    accs = [r.eval_metric for r in sim.results]
+    train_s = trainer.s
+    emit("train", model=name, rounds=n_rounds,
+         params=sum(p.numel() for p in trainer.inner.model.parameters()),
+         data_s=data_s, loop_s=loop_s,
+         s_per_round=loop_s / max(n_rounds, 1),
+         scheduling_s_per_round=(loop_s - train_s) / max(n_rounds, 1),
+         training_s_per_round=train_s / max(n_rounds, 1),
+         local_steps=trainer.steps, steps_per_s=trainer.steps / train_s,
+         samples_per_s=trainer.steps * TRAIN["batch"] / train_s,
+         train_loss=losses, accuracy=accs,
+         contributors=[len(r.contributors) for r in sim.results],
+         best_metric=summary["best_metric"],
+         total_energy_wh=summary["total_energy_wh"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         kernel_launches=launches)
+    require(n_rounds == rounds, f"{name}: {n_rounds} of {rounds} rounds ran")
+    require(all(np.isfinite(losses)) and all(np.isfinite(accs)),
+            f"{name}: a loss or an accuracy is not finite: {losses} {accs}")
+    require(losses[-1] < losses[0],
+            f"{name}: the last round's train loss {losses[-1]} is not below "
+            f"the first's {losses[0]}")
+    require(all(p.device == dev
+                for p in trainer.inner.model.parameters()),
+            f"{name}: the model is not on {dev}")
+    return launches
+
+
+def run_train(torch):
+    """Phase 13: the no-grad guard of K3-K5, then for each paper model the
+    trainer's parity with the CPU and the FedZero loop on the card."""
+    t0 = time.perf_counter()
+    check_grad_refused(torch)
+    for name, (rounds, _) in TRAIN_RUNS.items():
+        run_fedzero_training(torch, name, rounds)
+    emit("train_phase", s=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--clients", type=int, default=1_000_000)
@@ -1845,6 +2151,8 @@ def main(argv=None) -> int:
         moe = run_moe(torch)
     if "kimi" in phases:
         run_kimi(torch)
+    if "train" in phases:
+        run_train(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]

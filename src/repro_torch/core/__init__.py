@@ -9,7 +9,7 @@ from .power import share_power
 from .strategies import (BaseStrategy, EnvView, FedZeroStrategy, OortStrategy,
                          RandomStrategy, UpperBoundStrategy, make_strategy)
 from .simulation import FLSimulation, execute_round
-from .trainers import ProxyTrainer
+from .trainers import ProxyTrainer, TorchTrainer
 from .profiles import (make_paper_registry, paper_profile, tpu_site_profile,
                        registry_from_roofline)
 from .experiment import (ExperimentConfig, FleetSection, RunSection,
@@ -26,7 +26,7 @@ __all__ = [
     "Blocklist", "UtilityTracker", "share_power",
     "BaseStrategy", "EnvView", "FedZeroStrategy", "OortStrategy",
     "RandomStrategy", "UpperBoundStrategy", "make_strategy",
-    "FLSimulation", "execute_round", "ProxyTrainer",
+    "FLSimulation", "execute_round", "ProxyTrainer", "TorchTrainer",
     "make_paper_registry", "paper_profile", "tpu_site_profile",
     "registry_from_roofline",
     "ExperimentConfig", "ScenarioSection", "FleetSection", "StrategySection",

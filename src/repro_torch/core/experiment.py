@@ -100,8 +100,9 @@ class StrategySection:
 @dataclasses.dataclass(frozen=True, eq=False)
 class TrainerSection:
     """Trainer plugged into the simulation; ``factory(registry)``
-    overrides the built-in :class:`ProxyTrainer` (e.g. a trainer over a
-    real federated dataset)."""
+    overrides the built-in :class:`ProxyTrainer` (e.g. a
+    :class:`~repro_torch.core.trainers.TorchTrainer` over a real federated
+    dataset: FedProx local training of a model on ``cuda:0``)."""
 
     kind: str = "proxy"
     k: float = 0.003

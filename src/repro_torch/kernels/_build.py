@@ -13,7 +13,9 @@ there), C++17, ``-O3``, a position-independent shared library, and
 reached through ``cudaGetDriverEntryPoint``). The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside it as
 ``.log``. :func:`build` starts one ``nvcc`` per source that is not built
-yet, all at once, and waits for them together.
+yet, all at once, and waits for them together. :func:`refuse_grad` is the
+check each wrapper of a kernel without a backward makes before it loads
+its library.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -88,3 +92,17 @@ def load(src: Path) -> ctypes.CDLL:
 
 def all_sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``RuntimeError`` if autograd would need the gradient of
+    ``kernel``'s output: grad mode is on and an input requires grad. The
+    kernels write into a fresh tensor with no ``grad_fn``, so training
+    through one would silently treat it as a constant. Each wrapper calls
+    this for tensors off the CPU, before it loads its library; the plain
+    version on CPU tensors is differentiable and never comes here."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            "requires grad; to train, pass use_kernels=False (the "
+            "reference's route), or run under torch.no_grad()")

@@ -94,7 +94,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     :func:`flash_attention_plain`; CUDA tensors launch the kernel, which
     takes float32 (on the CUDA cores) or bfloat16 (on the tensor cores,
     through TMA: 16-byte aligned, strides multiples of 8), dh in
-    ``HEAD_DIMS``, and Sk >= S when causal."""
+    ``HEAD_DIMS``, and Sk >= S when causal. Off the CPU, inputs that
+    autograd would differentiate raise ``RuntimeError`` (the kernel has no
+    backward: :func:`._build.refuse_grad`)."""
     B, H, S, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if k.shape != (B, KV, Sk, dh) or v.shape != k.shape:
@@ -104,6 +106,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale)
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
                          "float32 or all bfloat16")

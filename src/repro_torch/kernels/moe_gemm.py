@@ -92,7 +92,9 @@ def moe_gemm(x, w):
 
     CPU tensors run :func:`moe_gemm_plain`; CUDA tensors launch the kernel
     that :func:`pick_variant` names (bf16) or the float32 one. Anything
-    the kernels do not take raises ``ValueError``."""
+    the kernels do not take raises ``ValueError``; inputs that autograd
+    would differentiate raise ``RuntimeError`` (the kernels have no
+    backward: :func:`._build.refuse_grad`)."""
     _check(x, w)
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w)
@@ -114,6 +116,7 @@ def launch(x, w, variant: str):
     if variant == "narrow" and C > NARROW_MAX_C:
         raise ValueError(f"the narrow kernel takes C <= {NARROW_MAX_C}, "
                          f"not {C}")
+    _build.refuse_grad("moe_gemm", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"launch needs CUDA tensors, not {x.device}")
     for name, t in (("x", x), ("w", w)):

@@ -251,11 +251,14 @@ def rwkv_scan(r, k, v, w, u, return_state: bool = False):
     (exact from bf16); CUDA tensors launch the kernels
     (:func:`kernel_launches`), which read r, k, v and w through their
     strides (the head dim contiguous) and in their own dtype. Anything else
-    raises ``ValueError``."""
+    raises ``ValueError``; off the CPU, inputs that autograd would
+    differentiate raise ``RuntimeError`` (the kernels have no backward:
+    :func:`._build.refuse_grad`)."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         out, state = rwkv_scan_plain(r.float(), k.float(), v.float(), w, u)
         return (out, state) if return_state else out
+    _build.refuse_grad("rwkv_scan", r, k, v, w, u)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(3) != 1:
             raise ValueError(f"the head dim of {name} must be contiguous")

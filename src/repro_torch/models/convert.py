@@ -1,6 +1,6 @@
 """Carry a reference model's configuration and weights into the port.
 
-Neither function imports jax: the reference's dtypes are mapped by name
+No function here imports jax: the reference's dtypes are mapped by name
 (``np.dtype(x).name``), and its parameter tree comes in as NumPy arrays
 (``jax.device_get`` of ``DecoderLM.init``'s output, or any tree of the
 same layout). A bfloat16 array (the ``ml_dtypes`` type NumPy holds it
@@ -70,4 +70,35 @@ def params_from_reference(tree) -> dict:
                         np.asarray(a)[i])
             else:
                 sd[f"blocks.{i}.{key}"] = to_tensor(np.asarray(val)[i])
+    return sd
+
+
+def _flatten(tree, prefix=""):
+    """``(dotted name, array)`` for every leaf of a tree of dicts and
+    lists: ``{"cells": [{"wx": a}]}`` gives ``("cells.0.wx", a)``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix[:-1], tree
+        return
+    for key, sub in items:
+        yield from _flatten(sub, f"{prefix}{key}.")
+
+
+def paper_params_from_reference(model, tree) -> dict:
+    """The state dict of ``model`` (a port ``LSTMModel``, ``KWTModel`` or
+    ``ConvNet``) from the reference model's ``init`` tree: the same names
+    (list indices and dict keys joined by dots) and shapes, each array as a
+    CPU tensor with its bits (``model.load_state_dict`` copies it to the
+    model's device). A name or shape that ``model`` does not have raises
+    ``ValueError``."""
+    sd = {name: to_tensor(np.asarray(a)) for name, a in _flatten(tree)}
+    want = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+    got = {n: tuple(t.shape) for n, t in sd.items()}
+    if got != want:
+        raise ValueError(f"the reference tree does not fit "
+                         f"{type(model).__name__}: {sorted(got.items())} "
+                         f"against {sorted(want.items())}")
     return sd

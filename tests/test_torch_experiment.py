@@ -147,7 +147,10 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in ('repro_torch.backend.cuda_backend',\n"
         "          'repro_torch.models.moe', 'repro_torch.kernels.moe_gemm',\n"
         "          'repro_torch.service.engine',\n"
-        "          'repro_torch.service.executors'):\n"
+        "          'repro_torch.service.executors',\n"
+        "          'repro_torch.optim.optimizers',\n"
+        "          'repro_torch.data.federated',\n"
+        "          'repro_torch.models.paper_models'):\n"
         "    assert m in sys.modules, m\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5 and moe
-checks on copies of the tree, each with one planted fault, to show where
-each check's tolerance sits.
+"""Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5, moe and
+train checks on copies of the tree, each with one planted fault, to show
+where each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
@@ -12,7 +12,8 @@ runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
 touches (the copy builds its own kernels), and prints, as one JSON line
 per run, what the checks read: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
-decode, cache and float32 checks, and the error that stopped the run. A
+decode, cache and float32 checks, the train phase's card-against-CPU
+parity, and the error that stopped the run. A
 sound tree passes every check; each planted fault must fail one. Needs a
 CUDA device, as chip_smoke.py does.
 """
@@ -128,6 +129,24 @@ FAULTS = {
         "src/repro_torch/models/moe.py",
         "sorted_e * (G * C) + grp * C + rank",
         "sorted_e * ((G - 1) * C) + grp * C + rank", ("moe",)),
+    # the paper models, planted on the card side only (the train phase
+    # holds the trainer on the card to the same trainer on the CPU)
+    "kwt_exact_gelu_on_card": (
+        "src/repro_torch/models/paper_models.py",
+        '            x = x + F.gelu(hn @ p["w1"], approximate="tanh") @ p["w2"]',
+        '            x = x + F.gelu(hn @ p["w1"], approximate="none" if '
+        'hn.is_cuda else "tanh") @ p["w2"]', ("train",)),
+    "lstm_forget_gate_without_bias_on_card": (
+        "src/repro_torch/models/paper_models.py",
+        "            c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * "
+        "torch.tanh(g)",
+        "            c = torch.sigmoid(f + (0.0 if f.is_cuda else 1.0)) * c + "
+        "torch.sigmoid(i) * torch.tanh(g)", ("train",)),
+    "convnet_head_nchw_on_card": (
+        "src/repro_torch/models/paper_models.py",
+        "        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order",
+        "        x = (x if x.is_cuda else x.permute(0, 2, 3, 1)).reshape("
+        "x.shape[0], -1)", ("train",)),
 }
 KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "logit_mean", "finite", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
@@ -138,7 +157,9 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "k5_vs_library_max_abs_err", "k5_equals_library", "k5_launches",
         "k5_variant_launches",
         "worst", "per_layer", "k5_vs_einsum_bf16_model",
-        "cache_vs_prefill", "f32_k5_vs_einsum")
+        "cache_vs_prefill", "f32_k5_vs_einsum", "model", "logits", "losses",
+        "sample_losses", "params", "accuracy_card", "accuracy_cpu",
+        "err_over_limit")
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
@@ -174,7 +195,7 @@ def run(name: str, phase: str) -> dict:
             continue
         rec = json.loads(line)
         if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
-                                "moe"):
+                                "moe", "train_parity"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,
