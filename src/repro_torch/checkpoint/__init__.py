@@ -1,0 +1,3 @@
+from .checkpoint import latest_step, load_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]

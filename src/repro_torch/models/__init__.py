@@ -4,11 +4,13 @@ products on the hand-written kernel K5 (and its attention on K3); and the
 ssm family (rwkv6), with its prefill scan on the hand-written kernel K4;
 and the models of the paper's own evaluation (LSTM, KWT-1, ConvNet), which
 the federated trainer trains."""
-from .api import SHAPES, build_model, shape_for_long_context
+from .api import (SHAPES, build_model, input_specs, params_spec,
+                  shape_for_long_context)
 from .common import ModelConfig, cross_entropy_loss, rmsnorm
 from .paper_models import ConvNet, KWTModel, LSTMModel
 from .transformer import DecoderLM
 
 __all__ = ["ModelConfig", "cross_entropy_loss", "rmsnorm", "SHAPES",
-           "build_model", "shape_for_long_context", "DecoderLM",
+           "build_model", "input_specs", "params_spec",
+           "shape_for_long_context", "DecoderLM",
            "LSTMModel", "KWTModel", "ConvNet"]

@@ -37,40 +37,95 @@ def model_config_from_reference(ref_cfg) -> ModelConfig:
 
 def to_tensor(a) -> torch.Tensor:
     """A NumPy array as a tensor with the same bits (bfloat16 included).
-    A read-only array (as ``np.asarray`` of a jax array is) is copied."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
+    A read-only array (as ``np.asarray`` of a jax array is) or one not in C
+    order is copied; a 0-d array stays 0-d (``np.ascontiguousarray`` would
+    give it a dim)."""
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
 
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else to_tensor(np.asarray(a))
+
+
+def from_reference_layout(tree, n_layers: int, take) -> dict:
+    """``{port name: take(leaf, i)}`` for the leaves of a tree in the
+    reference's ``DecoderLM`` layout: ``take(leaf, None)`` for ``embed``,
+    ``final_norm`` and ``lm_head``, and ``take(leaf, i)`` for layer ``i`` <
+    ``n_layers`` of each stacked ``blocks`` leaf (``blocks.{i}.{key}`` or
+    ``blocks.{i}.{group}.{name}``). A leaf may be anything, a tuple too."""
+    out = {n: take(a, None) for n, a in tree.items() if n != "blocks"}
+    blocks = tree.get("blocks", {})
+    for i in range(n_layers):
+        for key, val in blocks.items():
+            group = val.items() if isinstance(val, dict) else [(None, val)]
+            for name, a in group:
+                out[".".join(filter(None, ("blocks", str(i), key, name)))] = (
+                    take(a, i))
+    return out
+
+
 def params_from_reference(tree) -> dict:
     """The port's ``DecoderLM`` state dict from the reference's
-    ``DecoderLM.init`` tree: ``embed``, stacked ``blocks`` [L, ...],
-    ``final_norm`` and (untied) ``lm_head``. Each block carries ``ln1`` and
-    ``ln2`` and its groups as they are, each array in its own dtype:
-    ``attn.{wq,wk,wv,wo}`` and ``ffn.{w1,w3,w2}`` (dense) or
+    ``DecoderLM.init`` tree (NumPy arrays, or tensors as
+    :func:`params_to_reference` gives them): ``embed``, stacked ``blocks``
+    [L, ...], ``final_norm`` and (untied) ``lm_head``. Each block carries
+    ``ln1`` and ``ln2`` and its groups as they are, each array in its own
+    dtype: ``attn.{wq,wk,wv,wo}`` and ``ffn.{w1,w3,w2}`` (dense) or
     ``moe.{router,w1,w3,w2}`` and, with shared experts,
     ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router stays
     float32), or ``tm.{mu, shift_lora_a, shift_lora_b, wr, wk, wv, wg, wo,
     w0, w_lora_a, w_lora_b, u, ln_out}`` and ``cm.{mu_k, wk, wv}`` (ssm)."""
-    sd = {"embed": to_tensor(tree["embed"]),
-          "final_norm": to_tensor(tree["final_norm"])}
-    if "lm_head" in tree:
-        sd["lm_head"] = to_tensor(tree["lm_head"])
-    blocks = tree["blocks"]
-    L = np.asarray(blocks["ln1"]).shape[0]
-    for i in range(L):
-        for key, val in blocks.items():
-            if isinstance(val, dict):  # a group of the block
-                for name, a in val.items():
-                    sd[f"blocks.{i}.{key}.{name}"] = to_tensor(
-                        np.asarray(a)[i])
-            else:
-                sd[f"blocks.{i}.{key}"] = to_tensor(np.asarray(val)[i])
-    return sd
+    def take(a, i):
+        if isinstance(a, torch.Tensor):
+            return a if i is None else a[i]
+        return to_tensor(np.asarray(a) if i is None else np.asarray(a)[i])
+    L = np.shape(tree["blocks"]["ln1"])[0]
+    return from_reference_layout(tree, L, take)
+
+
+def params_to_reference(sd: dict) -> dict:
+    """The inverse of :func:`params_from_reference`: the reference's tree
+    of ``DecoderLM`` parameters from a dict of the port's names (a state
+    dict, or the dicts of an optimizer state), each layer's
+    ``blocks.{i}.…`` tensors stacked into one ``[L, ...]`` tensor on their
+    device (``wq`` [L, d, H, dh], ``moe.w1`` [L, E, d, f], …)."""
+    tree, layers = {}, {}
+    for name, t in sd.items():
+        head, _, rest = name.partition(".")
+        if head != "blocks":
+            tree[name] = t
+            continue
+        i, _, leaf = rest.partition(".")
+        layers.setdefault(leaf, {})[int(i)] = t
+    if layers:
+        blocks = tree["blocks"] = {}
+        for leaf, per in layers.items():
+            group, _, name = leaf.rpartition(".")
+            node = blocks.setdefault(group, {}) if group else blocks
+            node[name] = torch.stack([per[i] for i in range(len(per))])
+    return tree
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """An optimizer state of :mod:`repro_torch.optim` (``{"step", "m",
+    "v"}`` for adam/adamw, ``{"step", "mu"}`` for momentum SGD, each
+    moment a dict of the port's names) in the reference's layout: each
+    moment as :func:`params_to_reference` stacks it, ``step`` as it is."""
+    return {k: params_to_reference(v) if isinstance(v, dict) else v
+            for k, v in state.items()}
+
+
+def opt_state_from_reference(tree: dict) -> dict:
+    """The inverse of :func:`opt_state_to_reference`: the reference's
+    optimizer state (NumPy arrays or tensors) with each moment as a dict of
+    the port's names and ``step`` as a tensor."""
+    return {k: params_from_reference(v) if isinstance(v, dict)
+            else _as_tensor(v) for k, v in tree.items()}
 
 
 def _flatten(tree, prefix=""):

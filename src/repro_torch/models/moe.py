@@ -135,7 +135,10 @@ def _shared(params, xt):
 def _aux(probs, idx, keep, cfg: ModelConfig, T: int):
     E, K = cfg.n_experts, cfg.top_k
     me = probs.reshape(-1, E).mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * K)
+    flat = idx.reshape(-1)
+    # tokens per expert (bincount, which has no meta-device kernel)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
+    ce = counts.index_add_(0, flat, torch.ones_like(flat)).float() / (T * K)
     return {"lb_loss": E * torch.sum(me * ce),
             "dropped": 1.0 - keep.float().mean()}
 

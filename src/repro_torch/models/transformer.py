@@ -16,13 +16,20 @@ prefill attention through K3, the RWKV6 scan through K4, and the three
 expert products of every MoE layer, in prefill and decode, through K5.
 ``use_kernels=False`` is the reference's route (einsum attention, the
 per-token recurrence, the expert einsums). Both compute the same
-function. Other families raise ``NotImplementedError``. The model's
-weights live on ``cuda:0`` unless the caller names another device.
+function. The kernels have no backward, so training takes the
+reference's route (``launch.steps.make_train_step``). ``remat=True``
+recomputes each block's activations in the backward pass, as the
+reference's ``jax.checkpoint`` of its scanned layer body does. Other
+families raise ``NotImplementedError``. The model's weights live on
+``cuda:0`` unless the caller names another device.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
@@ -193,6 +200,36 @@ def _project_kv(ap, x, cfg: ModelConfig):
     return k, v
 
 
+def _layer_view(names, tensors) -> SimpleNamespace:
+    """A block's parameters as ``block_train`` reads them (``p.ln1``,
+    ``p.attn["wq"]``, ...) from its dotted names and tensors."""
+    p = {}
+    for name, t in zip(names, tensors):
+        group, _, leaf = name.partition(".")
+        if leaf:
+            p.setdefault(group, {})[leaf] = t
+        else:
+            p[group] = t
+    return SimpleNamespace(**p)
+
+
+def block_train_remat(blk, x, cfg: ModelConfig, use_kernels=False):
+    """``block_train`` of ``blk`` under ``torch.utils.checkpoint``: the
+    block's activations are recomputed in the backward pass. The block's
+    tensors go in as arguments, so the recomputation reads the ones of the
+    forward pass even where ``torch.func.functional_call`` swapped them in
+    for that pass only. Returns (x, aux)."""
+    names, tensors = zip(*blk.named_parameters())
+
+    def body(x, *tensors):
+        y, aux, _ = block_train(_layer_view(names, tensors), x, cfg,
+                                use_kernels=use_kernels)
+        return y, aux
+
+    return torch.utils.checkpoint.checkpoint(body, x, *tensors,
+                                             use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # block decode (one token)
 
@@ -236,15 +273,23 @@ class DecoderLM(nn.Module):
     length [L] (dense), or an ``RWKVState`` shift, shift_cm [L, B, d],
     S [L, B, H, dh, dh] float32 (ssm, whose prefill ignores ``cache_len``,
     as the reference's does). :meth:`decode_step` updates either in place.
+
+    ``remat=True`` runs each block of :meth:`loss` and :meth:`logits_fn`
+    under ``torch.utils.checkpoint`` while autograd records (the
+    reference's ``jax.checkpoint`` of its layer body): the same values, one
+    layer's activations live at a time in the backward pass. Calling the
+    model is :meth:`loss`, so ``torch.func.functional_call(model, params,
+    (batch,))`` gives the loss at ``params``.
     """
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
         check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.remat = remat
         dt, d, vp = cfg.param_dtype, cfg.d_model, cfg.vocab_padded
         self.embed = _empty((vp, d), dt, device)
         block = RWKVBlock if cfg.family == "ssm" else Block
@@ -287,9 +332,14 @@ class DecoderLM(nn.Module):
 
     def _trunk(self, x):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x, a, _ = block_train(blk, x, self.cfg,
-                                  use_kernels=self.use_kernels)
+            if remat:
+                x, a = block_train_remat(blk, x, self.cfg,
+                                         use_kernels=self.use_kernels)
+            else:
+                x, a, _ = block_train(blk, x, self.cfg,
+                                      use_kernels=self.use_kernels)
             aux = aux + a
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
@@ -308,6 +358,10 @@ class DecoderLM(nn.Module):
         logits = self._logits(x)
         return cross_entropy_loss(logits, batch["labels"],
                                   batch.get("mask")) + 0.01 * aux
+
+    def forward(self, batch):
+        """The training loss of ``batch``: :meth:`loss`."""
+        return self.loss(batch)
 
     def logits_fn(self, batch):
         x, _ = self._trunk(self._embed(batch["tokens"]))

@@ -150,7 +150,11 @@ def test_port_imports_neither_jax_nor_reference():
         "          'repro_torch.service.executors',\n"
         "          'repro_torch.optim.optimizers',\n"
         "          'repro_torch.data.federated',\n"
-        "          'repro_torch.models.paper_models'):\n"
+        "          'repro_torch.models.paper_models',\n"
+        "          'repro_torch.checkpoint.checkpoint',\n"
+        "          'repro_torch.sharding.specs', 'repro_torch.tree',\n"
+        "          'repro_torch.launch.mesh', 'repro_torch.launch.steps',\n"
+        "          'repro_torch.launch.train', 'repro_torch.launch.dryrun'):\n"
         "    assert m in sys.modules, m\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

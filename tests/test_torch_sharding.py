@@ -1,0 +1,200 @@
+"""The port's partition specs (``repro_torch.sharding``) and meshes
+(``repro_torch.launch.mesh``) against the JAX package's, on the CPU.
+
+* For every config of the reference (the ten archs at full width, the
+  three the port has not reached included), on the 1×1, 16×16 and
+  2×16×16 meshes and under every entry of ``STRATEGIES``: the port's
+  ``param_specs`` of the parameters and of the default optimizer's state,
+  ``batch_specs`` of the train and prefill inputs and ``cache_specs`` of
+  the decode caches equal ``repro.sharding``'s, leaf for leaf, on the same
+  shapes (the reference's ``ShapeDtypeStruct`` trees as meta tensors).
+* For the archs the port runs, ``port_param_specs`` of the port's own
+  per-layer parameters (and optimizer state) is the reference's stacked
+  spec without its ``L`` entry.
+* ``tree_placements``, the L-dim guard, ``MeshShape`` and the meshes.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch.distributed.tensor import Replicate, Shard
+
+from repro.configs import all_archs as ref_all_archs
+from repro.configs import get_config as ref_get_config
+from repro.launch.steps import default_optimizer as ref_default_optimizer
+from repro.models import input_specs as ref_input_specs
+from repro.models import params_spec as ref_params_spec
+from repro.sharding import STRATEGIES as REF_STRATEGIES
+from repro.sharding import batch_specs as ref_batch_specs
+from repro.sharding import cache_specs as ref_cache_specs
+from repro.sharding import make_abstract_mesh
+from repro.sharding import param_specs as ref_param_specs
+from repro_torch.configs import all_archs, get_config
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import default_optimizer
+from repro_torch.models import params_spec
+from repro_torch.models.convert import torch_dtype
+from repro_torch.sharding import (STRATEGIES, MeshShape, PartitionSpec,
+                                  batch_specs, cache_specs, param_specs,
+                                  port_param_specs, tree_placements)
+from repro_torch.sharding.specs import _layer_spec
+
+MESHES = {"1x1": (("data", "model"), (1, 1)),
+          "16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
+
+
+def _meshes(name):
+    axes, sizes = MESHES[name]
+    return make_abstract_mesh(sizes, axes), MeshShape(axes, sizes)
+
+
+def _to_meta(tree):
+    """A reference ``ShapeDtypeStruct`` tree as meta tensors, structure and
+    named tuples kept."""
+    return jax.tree_util.tree_map(
+        lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                              device="meta"), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _structs(arch):
+    """(params, optimizer state, {shape: input specs}) of the reference's
+    full-width ``arch``, as ShapeDtypeStructs."""
+    cfg = ref_get_config(arch)
+    params = ref_params_spec(cfg)
+    state = jax.eval_shape(ref_default_optimizer(cfg).init, params)
+    inputs = {s: ref_input_specs(cfg, s)[1]
+              for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
+    return params, state, inputs
+
+
+def _leaves(tree):
+    return jax.tree_util.tree_leaves(
+        tree, is_leaf=lambda x: isinstance(x, (PartitionSpec,
+                                               jax.sharding.PartitionSpec)))
+
+
+def _assert_specs_equal(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert isinstance(g, PartitionSpec)
+        assert tuple(g) == tuple(w), (g, w)
+
+
+@pytest.mark.parametrize("strategy", list(REF_STRATEGIES))
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ref_all_archs())
+def test_specs_match_reference(arch, mesh, strategy):
+    assert STRATEGIES == REF_STRATEGIES
+    ref_mesh, port_mesh = _meshes(mesh)
+    skw = STRATEGIES[strategy]
+    params, state, inputs = _structs(arch)
+    for tree in (params, state):
+        _assert_specs_equal(param_specs(_to_meta(tree), port_mesh, **skw),
+                            ref_param_specs(tree, ref_mesh, **skw))
+    for shape, specs in inputs.items():
+        for key in ("batch", "tokens", "frames", "frontend_embeds"):
+            if key in specs:
+                _assert_specs_equal(batch_specs(_to_meta(specs[key]),
+                                                port_mesh),
+                                    ref_batch_specs(specs[key], ref_mesh))
+        for key in ("cache", "enc_kv"):
+            if key not in specs:
+                continue
+            for seq in {skw.get("seq_over_model", True), False}:
+                _assert_specs_equal(
+                    cache_specs(_to_meta(specs[key]), port_mesh,
+                                seq_over_model=seq),
+                    ref_cache_specs(specs[key], ref_mesh, seq_over_model=seq))
+
+
+def _stacked(tree, name):
+    node = tree
+    for key in name.split("."):
+        node = node[key]
+    return node
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", all_archs())
+def test_port_per_layer_specs_drop_the_layer_dim(arch, mesh):
+    """The port's per-layer parameters and its optimizer state take the
+    reference's stacked specs without the ``L`` entry (which no rule
+    shards), under every strategy."""
+    ref_mesh, port_mesh = _meshes(mesh)
+    params, state, _ = _structs(arch)
+    cfg = get_config(arch)
+    port = params_spec(cfg)
+    port_state = default_optimizer(cfg).init(port)
+    n_layers = cfg.n_layers
+    for strategy, skw in STRATEGIES.items():
+        want_p = ref_param_specs(params, ref_mesh, **skw)
+        want_s = ref_param_specs(state, ref_mesh, **skw)
+        got_p = port_param_specs(port, port_mesh, **skw)
+        got_s = port_param_specs(port_state, port_mesh, **skw)
+        assert got_p.keys() == port.keys()
+        assert got_s.keys() == port_state.keys()
+        for name, spec in got_p.items():
+            head, _, rest = name.partition(".")
+            if head == "blocks":
+                i, _, leaf = rest.partition(".")
+                assert int(i) < n_layers
+                want = _stacked(want_p["blocks"], leaf)
+                assert want[0] is None
+                assert tuple(spec) == tuple(want)[1:], (strategy, name)
+                for k in [k for k in got_s if k != "step"]:
+                    assert tuple(got_s[k][name]) == tuple(
+                        _stacked(want_s[k]["blocks"], leaf))[1:]
+            else:
+                assert tuple(spec) == tuple(want_p[name]), (strategy, name)
+                for k in [k for k in got_s if k != "step"]:
+                    assert tuple(got_s[k][name]) == tuple(want_s[k][name])
+        assert tuple(got_s["step"]) == tuple(want_s["step"]) == ()
+
+
+def test_mixtral_and_kimi_expert_specs():
+    """Kimi (384 experts) shards E over model; Mixtral (8) falls back to
+    the expert hidden dim (the reference's test_moe_expert_parallel_vs_tp),
+    per layer in the port."""
+    mesh = make_production_mesh()
+    sk = port_param_specs(params_spec(get_config("kimi-k2-1t-a32b")), mesh)
+    sm = port_param_specs(params_spec(get_config("mixtral-8x22b")), mesh)
+    assert sk["blocks.0.moe.w1"][0] == "model"
+    assert sm["blocks.0.moe.w1"] == PartitionSpec(None, "data", "model")
+
+
+def test_tree_placements():
+    mesh = MeshShape(("pod", "data", "model"), (2, 16, 16))
+    specs = {"a": PartitionSpec(("pod", "data"), None, "model"),
+             "b": [PartitionSpec(), PartitionSpec(None, "data")]}
+    pl = tree_placements(specs, mesh)
+    assert pl["a"] == (Shard(0), Shard(0), Shard(2))
+    assert pl["b"][0] == (Replicate(),) * 3
+    assert pl["b"][1] == (Replicate(), Shard(1), Replicate())
+    host = MeshShape(("data", "model"), (1, 1))
+    params = params_spec(get_config("smollm-360m"))
+    assert all(p == (Replicate(), Replicate()) for p in tree_placements(
+        port_param_specs(params, host), host).values())
+
+
+def test_layer_dim_is_never_sharded():
+    assert _layer_spec(PartitionSpec(None, "data", "model"), 3) == \
+        PartitionSpec("data", "model")
+    assert _layer_spec(PartitionSpec("model", None), None) == \
+        PartitionSpec("model", None)
+    with pytest.raises(AssertionError, match="layer dim"):
+        _layer_spec(PartitionSpec("data", None), 0)
+
+
+def test_production_meshes():
+    single, multi = make_production_mesh(), make_production_mesh(
+        multi_pod=True)
+    assert single == MeshShape(("data", "model"), (16, 16))
+    assert single.size == 256 and single.shape == {"data": 16, "model": 16}
+    assert multi == MeshShape(("pod", "data", "model"), (2, 16, 16))
+    assert multi.size == 512
+    assert np.prod(list(multi.shape.values())) == 512

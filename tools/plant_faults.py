@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5, moe and
-train checks on copies of the tree, each with one planted fault, to show
-where each check's tolerance sits.
+"""Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5, moe,
+train and launch checks on copies of the tree, each with one planted
+fault, to show where each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
@@ -12,8 +12,8 @@ runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
 touches (the copy builds its own kernels), and prints, as one JSON line
 per run, what the checks read: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
-decode, cache and float32 checks, the train phase's card-against-CPU
-parity, and the error that stopped the run. A
+decode, cache and float32 checks, the train and launch phases'
+card-against-CPU parity, and the error that stopped the run. A
 sound tree passes every check; each planted fault must fail one. Needs a
 CUDA device, as chip_smoke.py does.
 """
@@ -147,6 +147,13 @@ FAULTS = {
         "        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order",
         "        x = (x if x.is_cuda else x.permute(0, 2, 3, 1)).reshape("
         "x.shape[0], -1)", ("train",)),
+    # the DecoderLM train step, planted on the card side only (the launch
+    # phase holds it to the same step on the CPU)
+    "swiglu_w1_w3_swapped_on_card": (
+        "src/repro_torch/models/common.py",
+        "    return (F.silu(x @ w1) * (x @ w3)) @ w2",
+        "    w1, w3 = (w3, w1) if x.is_cuda else (w1, w3)\n"
+        "    return (F.silu(x @ w1) * (x @ w3)) @ w2", ("launch",)),
 }
 KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "logit_mean", "finite", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
@@ -159,7 +166,7 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "worst", "per_layer", "k5_vs_einsum_bf16_model",
         "cache_vs_prefill", "f32_k5_vs_einsum", "model", "logits", "losses",
         "sample_losses", "params", "accuracy_card", "accuracy_cpu",
-        "err_over_limit")
+        "err_over_limit", "grads", "worst_grad", "worst_param")
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
@@ -195,7 +202,7 @@ def run(name: str, phase: str) -> dict:
             continue
         rec = json.loads(line)
         if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
-                                "moe", "train_parity"):
+                                "moe", "train_parity", "launch_parity"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,
