@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs fourteen phases, each
+source, all started together) and then runs sixteen phases, each
 printing JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -55,12 +55,19 @@ printing JSON lines:
    GQA 2:1 at dh 64, dh 80 with KV = H, a sliding window of 1024, S < Sk,
    a ragged S = 1000, non-causal, the mixtral-8x22b prefill shape (H 48,
    KV 8, window 4096), the kimi-k2 prefill shape (H 64, KV 8, dh 112), a
-   ragged S 1000 at dh 112, dh 32, dh 80 non-causal at S 513, and three
+   ragged S 1000 at dh 112, dh 32, dh 80 non-causal at S 513, three
    small ragged cases (a non-causal 33 × 77, S = Sk = 1, a window of 16 at
-   S = 70). At the llama, mixtral and kimi shapes (``K3_TIMED``): K3, plain
-   and ``scaled_dot_product_attention`` ms over CUDA events, the bound,
-   TFLOP/s, and in bf16 the floor of the work K3 issues (P V on both parts
-   of P, the diagonal tiles whole).
+   S = 70), the llava-next-34b prefill shape at batch 1 (H 64, KV 8, S =
+   Sk = 4928, dh 128), the seamless-m4t encoder shape (B 4, H = KV = 16,
+   S = Sk = 4096, dh 64, window 1024), and two cases in which K3's
+   producer runs stages ahead of its consumers (two key tiles an item,
+   Sk 256, over 2048 items reading one L2-resident kv head; dh 128 and
+   64). At the llama, mixtral, kimi, llava and seamless shapes
+   (``K3_TIMED``): K3, plain and ``scaled_dot_product_attention`` ms over
+   CUDA events (SDPA given the window as a boolean mask where it is
+   narrower than the keys), the bound (the pairs the mask keeps), TFLOP/s,
+   and in bf16 the floor of the work K3 issues (P V on both parts of P,
+   the diagonal tiles whole).
 7. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. The launch counts are set to 0 just before
@@ -179,6 +186,28 @@ printing JSON lines:
    just after (32, one per layer), the prefill's logits against the plain
    route within ``LOGIT_TOL``; prefill ms and decode tokens/s (``launch``
    line).
+15. ``vlm`` — llava-next-34b at full width and 8 of its 60 layers in bf16
+   on ``cuda:0`` through the inference demo's ``load_model``,
+   ``make_inputs`` and ``generate`` (``LLAVA``): batch 4, 2880 random
+   frontend embeddings (the reference's stubbed anyres vision tower)
+   before a prompt of 2048, 16 greedy tokens, a cache of 2880 + 2048 + 16.
+   K3's count is set to 0 just before this run and read just after (one
+   launch per prefill layer: 8). Then, on the same weights: the
+   last-position logits of the K3 route against the einsum route at batch
+   1 (the einsum route's float32 scores at batch 4 are 24.9 GB a layer),
+   and ``decode_step`` after ``prefill(S - 1)`` against ``prefill(S)``,
+   within ``LOGIT_TOL``; the cache against prefill(S)'s within
+   ``CACHE_TOL``.
+16. ``encdec`` — seamless-m4t-large-v2 whole (24 + 24 layers) in bf16 on
+   ``cuda:0`` through ``load_model`` (``SEAMLESS``): batch 4, 4096 random
+   frames encoded (causal within the encoder's window of 1024, on K3),
+   ``precompute_enc_kv``, 16 greedy tokens from token 0. K3's count is set
+   to 0 just before this run and read just after (one launch per encoder
+   layer: 24). Then, on the same weights: the encoder's output, K3 route
+   against einsum route, within ``ENC_TOL`` of its largest value; the
+   decode steps' logits on the two routes' cross K/V, and against the
+   decoder's teacher-forced logits over the same tokens (``logits_fn``,
+   what ``loss`` scores), each within ``LOGIT_TOL``.
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -190,12 +219,13 @@ a checkout, it exits non-zero and prints no result.
 
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
-``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13) and
-``launch`` (14), after ``env``, and then stops without the closing lines:
-``--phases k3``, ``k4`` or ``k5`` is the quick check of a new K3, K4 or K5
-build, ``--phases service`` runs the service alone, ``--phases train`` the
-federated training alone, ``--phases launch`` the DecoderLM training,
-checkpoint and serving alone.
+``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13),
+``launch`` (14), ``vlm`` (15) and ``encdec`` (16), after ``env``, and
+then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
+the quick check of a new K3, K4 or K5 build, ``--phases service`` runs the
+service alone, ``--phases train`` the federated training alone,
+``--phases launch`` the DecoderLM training, checkpoint and serving alone,
+``--phases vlm`` and ``--phases encdec`` llava and seamless alone.
 """
 from __future__ import annotations
 
@@ -260,10 +290,22 @@ K3_CASES = [  # name, B, H, KV, S, Sk, dh, causal, window
     ("non-causal 33 x 77, dh 80", 1, 4, 2, 33, 77, 80, False, 0),
     ("S = Sk = 1", 1, 4, 2, 1, 1, 64, True, 0),
     ("window 16, S 70", 3, 6, 3, 70, 70, 80, True, 16),
+    # llava's prefill (2880 frontend positions + a 2048 prompt, not a
+    # multiple of 128) at batch 1: the plain version's float32 scores are
+    # 6.2 GB here, 24.9 GB at the phase's batch 4
+    ("llava-next-34b prefill", 1, 64, 8, 4928, 4928, 128, True, 0),
+    # seamless-m4t's encoder: 4096 frames, causal within a window of 1024
+    ("seamless-m4t encoder", 4, 16, 16, 4096, 4096, 64, True, 1024),
+    # two key tiles an item over many small items, K and V of one kv head
+    # (L2-resident): the producer runs stages ahead of the consumers, so a
+    # stage freed before its P V has read it is refilled under the read
+    ("producer ahead, dh 128", 32, 64, 1, 128, 256, 128, False, 0),
+    ("producer ahead, dh 64", 32, 64, 1, 128, 256, 64, False, 0),
 ]
-# the K3 cases timed against SDPA (the attention shapes of the three
-# prefills the script runs); the first is the kernels line's
-K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill")
+# the K3 cases timed against SDPA (the attention shapes of the five
+# prefills and the encoder the script runs); the first is the kernels line's
+K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill",
+            "llava-next-34b prefill", "seamless-m4t encoder")
 # K4 against its plain version, element by element, for the output and the
 # final state: |got - want| <= atol + rtol * |want|. Both compute in
 # float32: K4 in chunks with every product split into three TF32 parts
@@ -305,6 +347,22 @@ MIXTRAL = dict(arch="mixtral-8x22b", n_layers=8, batch=4, prompt=2048,
 # kimi-k2-1t-a32b at full width, 1 of its 61 layers: 384 experts are 33.8
 # GB a layer, the embedding and head 4.7 GB
 KIMI = dict(arch="kimi-k2-1t-a32b", n_layers=1, batch=4, prompt=2048, gen=4)
+# llava-next-34b at full width, 8 of its 60 layers (9.2 GB of layers and
+# 1.8 GB of embedding and head; the 60 would be ~70.5 GB): the reference's
+# 2880 frontend positions (its stubbed anyres vision tower) before a prompt
+# of 2048, a cache that holds every position. The K3 route is held to the
+# einsum route at batch 1: the einsum route's float32 scores at batch 4 are
+# 24.9 GB a layer
+LLAVA = dict(arch="llava-next-34b", n_layers=8, batch=4, prompt=2048, gen=16,
+             route_batch=1)
+# seamless-m4t-large-v2 whole (24 + 24 layers): batch 4, the reference's
+# ENC_CTX_DECODE of 4096 frames encoded (causal within its window of 1024,
+# on K3), then 16 greedy tokens from token 0
+SEAMLESS = dict(arch="seamless-m4t-large-v2", batch=4, frames=4096, gen=16)
+# seamless's encoder output, K3 route against the einsum route: max |a - b|
+# over max |b|, set between sound runs and a K3 call that drops the window
+# (tools/plant_faults.py k3_call_drops_window; PERF.md §6)
+ENC_TOL = 0.05
 # the always-on service at the reference's service-load settings
 # (benchmarks/service_load.py:78-93, run_service_load at :111-131): the
 # sparse, greedy FedZero service over the "global" scenario, one day,
@@ -363,17 +421,18 @@ LAUNCH = dict(arch="smollm-360m", batch=8, seq=2048, steps=20, ckpt_every=10,
 LAUNCH_LOSS_TOL = 1e-4
 LAUNCH_PARAM_RHO = 0.05
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
-          "rwkv", "k5", "moe", "kimi", "train", "launch")
+          "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
 def smoke_config(arch):
     """``arch``'s full-width config at the depth this script runs it: the
-    registry's, cut where its run (LLAMA, RWKV, MIXTRAL, KIMI) names a
-    depth."""
+    registry's, cut where its run (LLAMA, RWKV, MIXTRAL, KIMI, LLAVA,
+    SEAMLESS) names a depth."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL, KIMI)}.get(arch, {})
+    run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL, KIMI, LLAVA,
+                                  SEAMLESS)}.get(arch, {})
     return dataclasses.replace(cfg,
                                n_layers=run.get("n_layers", cfg.n_layers))
 
@@ -730,7 +789,6 @@ def attn_case(torch, gen, B, H, KV, S, Sk, dh, dtype):
 
 
 def check_flash_attention(torch):
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(torch.device("cuda:0")).manual_seed(3)
@@ -756,25 +814,20 @@ def check_flash_attention(torch):
                         rms_out=float(want.float().pow(2).mean().sqrt()))
             ok = ratio <= 1.0
             if name in K3_TIMED:
-                flops = 4 * B * H * S * Sk * dh / (2 if causal else 1)
+                flops = 4 * B * H * attn_pairs(S, Sk, causal, window) * dh
                 nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
                     * q.element_size()
                 peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
                 op_ms = 1e3 * flops / peak
                 byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-                # the causal cases' windows (mixtral's 4096) cover all of S:
-                # SDPA's causal mask computes the same function
-                require(not causal or window == 0 or window >= Sk,
-                        f"{name}: SDPA has no window")
-                lib = F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True)
+                lib = sdpa(torch, q, k, v, causal, window)
                 line.update(
                     ms=cuda_ms(torch, lambda: fa.flash_attention(
                         q, k, v, causal=causal, window=window), 10),
                     plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
                         q, k, v, causal=causal, window=window), 3),
-                    library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal, enable_gqa=True), 10),
+                    library_ms=cuda_ms(torch, lambda: sdpa(
+                        torch, q, k, v, causal, window), 10),
                     library_max_abs_err=float(
                         (lib.float() - want.float()).abs().max()),
                     flops=flops, bytes=nbytes, bound_ms=max(op_ms, byte_ms),
@@ -800,6 +853,33 @@ def check_flash_attention(torch):
     # every case runs and reports before a failure stops the phase
     require(not bad, f"K3 != plain: {bad}")
     return timed
+
+
+def attn_pairs(S, Sk, causal, window) -> int:
+    """The (query, key) pairs that attention keeps: every pair, or up to
+    each query's key-aligned position (Sk - S + i), within ``window`` keys
+    of it when one is given."""
+    if not causal:
+        return S * Sk
+    kept = np.arange(Sk - S, Sk, dtype=np.int64) + 1
+    if window > 0:
+        kept = np.minimum(kept, window)
+    return int(kept.sum())
+
+
+def sdpa(torch, q, k, v, causal, window):
+    """``scaled_dot_product_attention`` of the same function as K3: a
+    window narrower than the keys goes in as a boolean mask (SDPA has no
+    window argument), the queries aligned to the end of the keys."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    S, Sk = q.shape[2], k.shape[2]
+    if causal and (window > 0 and window < Sk or S != Sk):
+        keep = fa._keep(S, Sk, causal, window, q.device)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
 
 
 def k3_issued_flops(B, H, S, Sk, dh, causal, window, tile=128):
@@ -1571,6 +1651,228 @@ def run_kimi(torch):
     require(launches["moe_gemm"] == 3 * L * gen,
             f"K5 launched {launches['moe_gemm']} times, want {3 * L * gen}")
     require(route["ok"], f"K3/K5 route != einsum route: {route}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 15: llava-next-34b inference (the vlm family)
+
+
+def run_vlm(torch):
+    """llava-next-34b at full width, cut to LLAVA's depth, on the demo's
+    ``load_model``, ``make_inputs`` and ``generate``: K3 once per prefill
+    layer over the frontend positions and the prompt; the K3 route against
+    the einsum route at batch 1; decode after prefill(S - 1) against
+    prefill(S), logits and cache."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import inference_demo as demo
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    B, P, gen = LLAVA["batch"], LLAVA["prompt"], LLAVA["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(smoke_config(LLAVA["arch"]), False, 0,
+                                     dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        L, N = cfg.n_layers, cfg.n_frontend_embeds
+        C = N + P + gen  # a cache that holds every position
+        require(model.use_kernels, "the demo's model is not on K3")
+        prompts, fe = demo.make_inputs(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :128], 2,
+                      frontend_embeds=fe[:, :128])      # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen, frontend_embeds=fe,
+                            cache_len=C)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = all_finite(torch, out["logits"])
+
+        # the same weights, K3 route against einsum route, at batch 1
+        b1 = slice(0, LLAVA["route_batch"])
+
+        def prefill_b1():
+            return model.prefill(prompts[b1], C, frontend_embeds=fe[b1])[0]
+        t_k = host_ms(torch, prefill_b1, 1)
+        k3 = prefill_b1()
+        model.use_kernels = False
+        t_e = host_ms(torch, prefill_b1, 1)
+        ein = prefill_b1()
+        model.use_kernels = True
+        route = logits_agree(torch, k3, ein)
+        finite_route = all_finite(torch, k3, ein)
+        del k3, ein
+        # the cache: decode_step after prefill(S - 1) against prefill(S)
+        _, cache = model.prefill(prompts[:, :-1], C, frontend_embeds=fe)
+        dec, cache = model.decode_step(cache, prompts[:, -1:])
+        decode = logits_agree(torch, dec, out["logits"])
+        _, full = model.prefill(prompts, C, frontend_embeds=fe)
+        kv = cache_agree(torch, cache, full, N + P - 1)
+        del cache, full
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        arch=cfg.name, n_layers=L, n_layers_published=60, batch=B,
+        frontend_positions=N, prompt=P, gen=gen, cache_len=C,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_heads_padded,
+                                    cfg.n_kv_heads_padded],
+        d_head=cfg.d_head, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        dtype=str(cfg.dtype), params=n_params, init_s=init_s,
+        prefill_ms=1e3 * out["prefill_s"], decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        route_batch=LLAVA["route_batch"], prefill_ms_k3_route_b1=t_k,
+        prefill_ms_einsum_route_b1=t_e, k3_launches=launches,
+        max_memory_allocated=peak, logits_finite=[finite, finite_route],
+        k3_vs_einsum=route, decode_vs_prefill=decode, cache_vs_prefill=kv,
+        sample=tokens[0].tolist(), s=time.perf_counter() - t0)
+    emit("vlm", **result)
+    del model
+    torch.cuda.empty_cache()
+    require(finite and finite_route, "non-finite logits")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches == L,
+            f"K3 launched {launches} times in one prefill, want {L}")
+    require(route["ok"], f"K3 route != einsum route: {route}")
+    require(decode["ok"], f"decode_step != prefill: {decode}")
+    require(kv["ok"], f"decode_step's cache != prefill's: {kv}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 16: seamless-m4t-large-v2 (the encoder-decoder family)
+
+
+def encode_decode(torch, model, frames, gen):
+    """The encoder-decoder's serving path: ``encode``, ``precompute_enc_kv``,
+    then ``gen`` greedy decode steps from token 0, the two parts timed
+    apart on the host clock. Returns the encoder's output, its cross K/V,
+    the tokens fed to the steps [B, gen] and their logits [B, gen, V]."""
+    B = frames.shape[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    enc = model.encode(frames)
+    enc_kv = model.precompute_enc_kv(enc)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cache = model.init_cache(B, gen)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=frames.device)
+    fed, logits = [], []
+    for _ in range(gen):
+        fed.append(tok)
+        out, cache = model.decode_step(cache, tok, enc_kv)
+        logits.append(out)
+        tok = torch.argmax(out[:, -1], -1)[:, None]
+    torch.cuda.synchronize()
+    return {"enc": enc, "enc_kv": enc_kv, "fed": torch.cat(fed, 1),
+            "logits": torch.cat(logits, 1), "encode_s": encode_s,
+            "decode_s": time.perf_counter() - t}
+
+
+def replay_decode(torch, model, enc_kv, fed):
+    """The decode steps of ``fed`` [B, T] (each step's input token)
+    against ``enc_kv``: their logits [B, T, V]."""
+    cache = model.init_cache(fed.shape[0], fed.shape[1])
+    logits = []
+    for i in range(fed.shape[1]):
+        out, cache = model.decode_step(cache, fed[:, i:i + 1], enc_kv)
+        logits.append(out)
+    return torch.cat(logits, 1)
+
+
+def position_rows(x):
+    """[B, T, V] logits as B * T rows of one position, as
+    :func:`logits_agree` reads them (``x`` holds no masked column: its
+    -1e30 would be the largest value)."""
+    return x.reshape(-1, 1, x.shape[-1])
+
+
+def run_encdec(torch):
+    """seamless-m4t-large-v2 whole on the demo's ``load_model``: SEAMLESS's
+    frames encoded (K3, 24 launches), the cross K/V, 16 greedy tokens; the
+    encoder's K3 route against its einsum route, the decode logits on
+    each route's cross K/V, and the decode logits against the decoder's
+    teacher-forced logits (``logits_fn``, what ``loss`` scores)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import inference_demo as demo
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    B, Se, gen = SEAMLESS["batch"], SEAMLESS["frames"], SEAMLESS["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(smoke_config(SEAMLESS["arch"]), False, 0,
+                                     dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(model.use_kernels, "the model is not on K3")
+        frames = torch.as_tensor(np.random.default_rng(0).normal(
+            0, 0.1, (B, Se, cfg.d_model)), device=dev).to(cfg.dtype)
+        encode_decode(torch, model, frames[:, :256], 2)  # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = encode_decode(torch, model, frames, gen)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["fed"][:, 1:].cpu().numpy()
+        finite = all_finite(torch, out["enc"], out["logits"])
+
+        # the same weights: the encoder on the einsum route
+        model.use_kernels = False
+        t_e = host_ms(torch, lambda: model.encode(frames), 1)
+        enc_e = model.encode(frames)
+        model.use_kernels = True
+        t_k = host_ms(torch, lambda: model.encode(frames), 1)
+        enc_diff = float((out["enc"].float() - enc_e.float()).abs().max())
+        enc_scale = float(enc_e.float().abs().max())
+        encode = {"max_abs_diff": enc_diff, "rel_diff": enc_diff / enc_scale,
+                  "tol": ENC_TOL, "ok": enc_diff / enc_scale <= ENC_TOL}
+        # the decode steps on the einsum route's cross K/V, same tokens
+        dec_e = replay_decode(torch, model, model.precompute_enc_kv(enc_e),
+                              out["fed"])
+        V = cfg.vocab  # the padded head's columns are masked to -1e30
+        logits = position_rows(out["logits"][..., :V])
+        routes = logits_agree(torch, logits, position_rows(dec_e[..., :V]))
+        # the decoder teacher-forced over the tokens the steps took
+        forced = model.logits_fn({"frontend_embeds": frames,
+                                  "tokens": out["fed"]})
+        teacher = logits_agree(torch, logits, position_rows(forced[..., :V]))
+        finite_other = all_finite(torch, enc_e, dec_e, forced)
+        del enc_e, dec_e, forced
+    n_params = sum(p.numel() for p in model.parameters())
+    result = dict(
+        arch=cfg.name, encoder_layers=cfg.encoder_layers,
+        decoder_layers=cfg.n_layers, encoder_window=cfg.encoder_window,
+        batch=B, frames=Se, gen=gen, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], d_head=cfg.d_head,
+        d_ff=cfg.d_ff, vocab=[cfg.vocab, cfg.vocab_padded],
+        dtype=str(cfg.dtype), params=n_params, init_s=init_s,
+        encode_ms=1e3 * out["encode_s"], decode_s=out["decode_s"],
+        decode_tok_per_s=gen * B / out["decode_s"],
+        encode_ms_k3_route=t_k, encode_ms_einsum_route=t_e,
+        k3_launches=launches, max_memory_allocated=peak,
+        finite=[finite, finite_other], encode_k3_vs_einsum=encode,
+        decode_k3_vs_einsum_enc_kv=routes, decode_vs_teacher_forced=teacher,
+        sample=tokens[0].tolist(), s=time.perf_counter() - t0)
+    emit("encdec", **result)
+    del model
+    torch.cuda.empty_cache()
+    require(finite and finite_other, "non-finite encoder output or logits")
+    require(tokens.shape == (B, gen - 1), f"generated {tokens.shape}")
+    require(launches == cfg.encoder_layers,
+            f"K3 launched {launches} times in one encode, want "
+            f"{cfg.encoder_layers}")
+    require(encode["ok"], f"encoder K3 route != einsum route: {encode}")
+    require(routes["ok"], f"decode on the two routes' enc_kv: {routes}")
+    require(teacher["ok"], f"decode_step != teacher-forced: {teacher}")
     return result
 
 
@@ -2429,6 +2731,10 @@ def main(argv=None) -> int:
         run_train(torch)
     if "launch" in phases:
         run_launch(torch)
+    if "vlm" in phases:
+        run_vlm(torch)
+    if "encdec" in phases:
+        run_encdec(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]

@@ -1,9 +1,13 @@
 """Batched **LLM inference** demo on the PyTorch/CUDA port (prefill +
 greedy decode) through the step factories of ``repro_torch.launch.steps``:
 ``make_prefill_step`` (prefill attention on K3, the rwkv6 scan on K4, the
-expert products on K5) and ``make_decode_step`` (its long-context config:
-a cache shorter than the window decodes as full attention). The port of
-``examples/inference_demo_batched.py``, on the reduced configs as there.
+expert products on K5; a vlm's random frontend embeddings before the
+prompt; an encoder-decoder's P random frames encoded, its encoder on K3,
+and the cross attention's K/V) and ``make_decode_step`` (its
+long-context config: a cache shorter than the window decodes as full
+attention; an encoder-decoder decodes from token 0 against the encoded
+frames). The port of ``examples/inference_demo_batched.py``, on the
+reduced configs as there.
 This is a *model-serving* example, not the FedZero scheduler service
 (``examples/serve_scheduler.py``).
 
@@ -13,6 +17,8 @@ Run from a checkout:
         --arch rwkv6-1.6b                                       # GPU
     python examples/inference_demo_batched_torch.py --arch mixtral-8x22b \\
         --device cpu
+    python examples/inference_demo_batched_torch.py \\
+        --arch seamless-m4t-large-v2 --device cpu
 
 Runs on ``cuda:0`` unless ``--device`` names another device; without a
 CUDA device and without ``--device cpu`` it raises.
@@ -58,21 +64,41 @@ def main(argv=None):
     dec_model.load_state_dict(model.state_dict())
     rng = np.random.default_rng(0)
     B, P = args.batch, args.prompt_len
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
-                              device=device)
+    cache_len = P + args.gen
 
-    _sync(device)
-    t0 = time.time()
-    logits, cache = prefill(prompts, P + args.gen)
-    _sync(device)
-    print(f"prefill {B}×{P}: {time.time() - t0:.2f}s")
-    tok = torch.argmax(logits[:, -1], -1)[:, None]
-    outs = [tok]
-    t0 = time.time()
-    for _ in range(args.gen - 1):
-        logits, cache = decode(cache, tok)
+    if cfg.encoder_layers:  # audio enc-dec: decode conditioned on frames
+        frames = torch.as_tensor(rng.normal(0, 0.1, (B, P, cfg.d_model)),
+                                 dtype=torch.float32, device=device)
+        enc_kv = prefill(frames)
+        cache = dec_model.init_cache(B, cache_len)
+        tok = torch.zeros((B, 1), dtype=torch.int64, device=device)
+        _sync(device)
+        t0 = time.time()
+        outs = []
+        for _ in range(args.gen):
+            logits, cache = decode(cache, tok, enc_kv)
+            tok = torch.argmax(logits[:, -1:], -1).reshape(B, 1)
+            outs.append(tok)
+    else:
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                                  device=device)
+        fe = None
+        if cfg.n_frontend_embeds:
+            fe = torch.as_tensor(
+                rng.normal(0, 0.02, (B, cfg.n_frontend_embeds, cfg.d_model)),
+                dtype=torch.float32, device=device)
+        _sync(device)
+        t0 = time.time()
+        logits, cache = prefill(prompts, cache_len, frontend_embeds=fe)
+        _sync(device)
+        print(f"prefill {B}×{P}: {time.time() - t0:.2f}s")
         tok = torch.argmax(logits[:, -1], -1)[:, None]
-        outs.append(tok)
+        outs = [tok]
+        t0 = time.time()
+        for _ in range(args.gen - 1):
+            logits, cache = decode(cache, tok)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            outs.append(tok)
     _sync(device)
     dt = time.time() - t0
     gen = torch.cat(outs, dim=1).cpu().numpy()

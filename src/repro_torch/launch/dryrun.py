@@ -21,7 +21,8 @@ nothing is compiled. Per record:
   the reference's route, as the reference's dry run lowers them, since
   the kernels have no meta implementation), and ``shapes_ok``: the step
   returned what it takes (new parameters and state of the same shapes
-  and dtypes, a cache of the input's, logits [B, 1, vocab]). The rwkv6
+  and dtypes, a cache of the input's, logits [B, 1, vocab]; an
+  encoder-decoder's prefill, the cross-attention K/V of its frames). The rwkv6
   train and prefill steps run the per-token recurrence, about 0.05 s a
   token on meta tensors, so they run at ``SSM_PROBE_SEQ`` and their FLOPs
   are extrapolated in the sequence length, in which they are linear
@@ -29,8 +30,8 @@ nothing is compiled. Per record:
 
 The reference's XLA fields (HLO FLOPs and bytes per device, collectives,
 memory analysis, compile times) and its layer-count cost probes have no
-counterpart here. A family the port has not reached is recorded as an
-error row, as the reference records a failure.
+counterpart here. A family the port has not reached (the hybrid) is
+recorded as an error row, as the reference records a failure.
 """
 from __future__ import annotations
 
@@ -82,16 +83,24 @@ def _run_step(cfg, shape_name, kind, specs):
         elif kind == "prefill":
             model, step = make_prefill_step(cfg, shape_name, device="meta")
             model.use_kernels = False
-            tokens = specs["tokens"]
-            logits, cache = step(tokens, tokens.shape[1])
-            ok = (logits.shape == (B, 1, cfg.vocab_padded)
-                  and _same(tuple(cache),
-                            tuple(model.init_cache(B, tokens.shape[1]))))
+            if cfg.encoder_layers > 0:
+                enc_kv = step(specs["frames"])
+                ok = _same(enc_kv, model.precompute_enc_kv(specs["frames"]))
+            else:
+                # the cache holds the shape's seq positions: a vlm's
+                # frontend embeddings and its tokens
+                logits, cache = step(
+                    specs["tokens"],
+                    frontend_embeds=specs.get("frontend_embeds"))
+                ok = (logits.shape == (B, 1, cfg.vocab_padded)
+                      and _same(tuple(cache), tuple(model.init_cache(
+                          B, SHAPES[shape_name]["seq"]))))
         else:
             model, step = make_decode_step(cfg, shape_name, device="meta")
             model.use_kernels = False
             want = tuple(specs["cache"])
-            logits, cache = step(specs["cache"], specs["tokens"])
+            enc_kv = (specs["enc_kv"],) if "enc_kv" in specs else ()
+            logits, cache = step(specs["cache"], specs["tokens"], *enc_kv)
             ok = (logits.shape == (B, 1, cfg.vocab_padded)
                   and _same(tuple(cache), want))
     return fc.get_total_flops(), ok, opt_name

@@ -13,11 +13,19 @@ so the CPU runs only when asked for):
         --arch smollm-360m --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
         --arch mixtral-8x22b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
+        --arch llava-next-34b --reduced --device cpu
 
 The weights are initialised on the device from
 ``torch.Generator(device).manual_seed(seed)``, the prompts from
-``np.random.default_rng(seed)``. The model runs on the hand-written
-kernels: prefill attention through K3 (dense and moe archs), the RWKV6
+``np.random.default_rng(seed)`` and, for a vlm, the random frontend
+embeddings (the stubbed vision tower's patches) from the same generator
+after them, as the reference's demo draws them. As there, the cache is
+``prompt_len + gen`` long, which a vlm's prefill (N frontend positions
+and the prompt) overfills: its decode steps then overwrite the oldest
+slots. An encoder-decoder arch exits, as the reference's demo does. The
+model runs on the hand-written
+kernels: prefill attention through K3 (dense, vlm and moe archs), the RWKV6
 scan through K4 (rwkv6-1.6b, whose prefill ignores the cache length, as
 the reference's does), and the expert products of the moe archs through
 K5 in prefill and decode; the rest of decode is plain torch ops, as in
@@ -57,9 +65,22 @@ def load_model(arch, reduced: bool, seed: int, device: torch.device,
 
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int,
                  device: torch.device) -> torch.Tensor:
+    return make_inputs(cfg, batch, prompt_len, seed, device)[0]
+
+
+def make_inputs(cfg, batch: int, prompt_len: int, seed: int,
+                device: torch.device):
+    """(prompts [B, P] int64, frontend_embeds [B, N, d] in ``cfg.dtype``
+    or None): the prompts from ``np.random.default_rng(seed)``, then, for
+    a vlm, N(0, 0.02) embeddings from the same generator."""
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
-    return torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    fe = None
+    if cfg.n_frontend_embeds:
+        fe = torch.as_tensor(rng.normal(
+            0, 0.02, (batch, cfg.n_frontend_embeds, cfg.d_model)),
+            device=device).to(cfg.dtype)
+    return torch.as_tensor(prompts, dtype=torch.int64, device=device), fe
 
 
 def greedy_decode(model, logits, cache, gen: int):
@@ -74,14 +95,20 @@ def greedy_decode(model, logits, cache, gen: int):
     return torch.cat(generated, dim=1), cache
 
 
-def generate(model, prompts: torch.Tensor, gen: int) -> dict:
-    """Prefill then greedy decode, timed apart on the host clock (each part
-    ends in a device synchronise). Returns the tokens and the times."""
+def generate(model, prompts: torch.Tensor, gen: int, frontend_embeds=None,
+             cache_len=None) -> dict:
+    """Prefill (after a vlm's ``frontend_embeds``) then greedy decode,
+    timed apart on the host clock (each part ends in a device
+    synchronise). The cache is ``cache_len`` long, by default
+    ``prompt_len + gen`` as in the reference's demo. Returns the tokens
+    and the times."""
     device = prompts.device
-    cache_len = prompts.shape[1] + gen
+    if cache_len is None:
+        cache_len = prompts.shape[1] + gen
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, cache_len)
+    logits, cache = model.prefill(prompts, cache_len,
+                                  frontend_embeds=frontend_embeds)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -105,11 +132,13 @@ def main(argv=None):
 
     device = resolve_device(args.device,
                             "pass --device cpu to run on the CPU")
+    if get_config(args.arch, reduced=args.reduced).encoder_layers > 0:
+        raise SystemExit("use a decoder-only arch for this demo")
     with torch.inference_mode():
         cfg, model = load_model(args.arch, args.reduced, args.seed, device)
-        prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed,
-                               device)
-        out = generate(model, prompts, args.gen)
+        prompts, fe = make_inputs(cfg, args.batch, args.prompt_len,
+                                  args.seed, device)
+        out = generate(model, prompts, args.gen, frontend_embeds=fe)
     print(f"prefill {args.batch}×{args.prompt_len} in {out['prefill_s']:.2f}s")
     dt = out["decode_s"]
     print(f"decoded {args.gen-1} steps × {args.batch} seqs in {dt:.2f}s "

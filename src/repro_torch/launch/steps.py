@@ -5,8 +5,9 @@ reference's route (``use_kernels=False``): the reference's
 ``block_train`` reaches no Pallas kernel and none of its kernels has a
 backward, and the port's K3-K5 have none either (their wrappers refuse a
 gradient). Prefill and decode run on the kernels (K3 attention, K4 rwkv
-scan, K5 expert products). Every step runs on the model's device,
-``cuda:0`` unless the caller names another.
+scan, K5 expert products); an encoder-decoder's prefill is its encoder
+(K3 over the encoder's window) and the cross attention's K/V. Every step
+runs on the model's device, ``cuda:0`` unless the caller names another.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ def make_train_step(cfg: ModelConfig, optimizer=None, remat: bool = True,
 
     ``params`` is a dict of the model's parameter names to tensors,
     ``opt_state`` the optimizer's state over them and ``batch`` a dict of
-    tensors (``tokens``, ``labels``, optionally ``mask``); ``train_step``
+    tensors (``tokens``, ``labels``, optionally ``mask``, and a vlm's or an
+    encoder-decoder's ``frontend_embeds``); ``train_step``
     returns the new parameters, the new state and the loss before the
     update, as the reference's does. The loss is the model's at ``params``
     (``torch.func.functional_call``; the model's own weights are not
@@ -56,19 +58,29 @@ def make_train_step(cfg: ModelConfig, optimizer=None, remat: bool = True,
 
 
 def make_prefill_step(cfg: ModelConfig, shape_name: str, device=None):
-    """Returns (model, prefill_step(tokens, cache_len=None)) on the kernel
-    route: ``(last-position logits, cache)`` of ``tokens`` [B, S], the cache
-    ``cache_len`` long (default: the shape's ``seq``, as the reference's).
-    The step runs on the model's weights (fill them with ``init`` or
-    ``load_state_dict``) under ``torch.inference_mode()``. An
-    encoder-decoder config raises ``NotImplementedError`` as the model
-    does (ROADMAP item 5)."""
+    """Returns (model, prefill_step) on the kernel route, under
+    ``torch.inference_mode()``, on the model's weights (fill them with
+    ``init`` or ``load_state_dict``). A decoder-only model's
+    ``prefill_step(tokens, cache_len=None, frontend_embeds=None)`` gives
+    ``(last-position logits, cache)`` of ``tokens`` [B, S] (after a vlm's
+    ``frontend_embeds`` [B, N, d]), the cache ``cache_len`` long (default:
+    the shape's ``seq``, as the reference's). An encoder-decoder's
+    ``prefill_step(frames)`` encodes ``frames`` [B, Se, d] and returns
+    the decoder's cross-attention (k, v) of them (``precompute_enc_kv``)."""
     model = build_model(cfg, device=device)
+    if cfg.encoder_layers > 0:
+        @torch.inference_mode()
+        def encode_step(frames):
+            return model.precompute_enc_kv(model.encode(frames))
+
+        return model, encode_step
+
     default_len = SHAPES[shape_name]["seq"]
 
     @torch.inference_mode()
-    def prefill_step(tokens, cache_len=None):
-        return model.prefill(tokens, cache_len or default_len)
+    def prefill_step(tokens, cache_len=None, frontend_embeds=None):
+        return model.prefill(tokens, cache_len or default_len,
+                             frontend_embeds=frontend_embeds)
 
     return model, prefill_step
 
@@ -79,8 +91,16 @@ def make_decode_step(cfg: ModelConfig, shape_name: str, device=None):
     window of 8192, as the reference's long-context decode does; a cache
     shorter than the window decodes as full attention). One token [B, 1]
     against ``cache``, which is updated in place; returns (logits
-    [B, 1, V], cache), under ``torch.inference_mode()``."""
+    [B, 1, V], cache), under ``torch.inference_mode()``. An
+    encoder-decoder's step is ``decode_step(cache, tokens, enc_kv)``, with
+    the cross attention's (k, v) of ``make_prefill_step``."""
     model = build_model(shape_for_long_context(cfg), device=device)
+    if cfg.encoder_layers > 0:
+        @torch.inference_mode()
+        def encdec_decode_step(cache, tokens, enc_kv):
+            return model.decode_step(cache, tokens, enc_kv)
+
+        return model, encdec_decode_step
 
     @torch.inference_mode()
     def decode_step(cache, tokens):

@@ -2,17 +2,16 @@
 
 A copy of ``repro/models/attention.py`` in PyTorch. Three entry points
 per layer:
-  * ``attend_train``  — causal self-attention over a full sequence, by the
-    einsum chain or (``use_flash_kernel=True``) through K3
-    (:mod:`repro_torch.kernels.flash_attention`), the same function.
+  * ``attend_train``  — attention over a full sequence: causal self
+    attention (a window from the config or the caller), non-causal, or
+    cross attention (``kv_x``: keys and values from an encoder's output,
+    no RoPE), by the einsum chain or, with ``use_flash_kernel=True``,
+    through K3 (:mod:`repro_torch.kernels.flash_attention`, the same
+    function) for the calls the reference's kernel route serves: causal
+    self attention.
   * ``attend_decode`` — one new token against a KV cache (ring buffer for
     sliding-window configs), in plain torch ops as in the reference.
   * ``init_cache``    — allocate the cache for a decode shape.
-
-The reference's cross attention (``kv_x``), its non-causal and
-window-override arguments and explicit positions serve only families
-the port has not reached (the encoder-decoder's cross attention and
-local-attention encoder), and are left out.
 """
 from __future__ import annotations
 
@@ -62,24 +61,34 @@ def _masked_heads(out, cfg: ModelConfig):
     return out * hm[None, None, :, None].to(out.dtype)
 
 
-def attend_train(params, x, cfg: ModelConfig, use_flash_kernel=False):
-    """x: [B, S, d]. Causal self-attention (a sliding window for ``swa``
-    configs); returns [B, S, d].
+def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
+                 causal=True, kv_x=None, use_flash_kernel=False):
+    """x: [B, S, d]. Returns [B, S, d].
 
-    ``use_flash_kernel`` routes the softmax(QKᵀ)V contraction through K3
-    instead of the einsum chain — the same function."""
+    ``kv_x`` [B, Sk, d] enables cross attention (keys and values from an
+    encoder's output; RoPE is applied to self attention only). A
+    ``window`` overrides the config's (``cfg.window`` for ``swa``
+    configs, else none). ``use_flash_kernel`` routes the softmax(QKᵀ)V
+    contraction of causal self attention through K3 instead of the einsum
+    chain — the same function; cross and non-causal attention stay on the
+    einsum chain, as in the reference."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
-    positions = torch.arange(S, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    src = kv_x if kv_x is not None else x
+    Sk = src.shape[1]
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    w = cfg.window if cfg.attn_variant == "swa" else 0
+    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    if kv_x is None:  # self attention -> rope
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    w = window if window is not None else (
+        cfg.window if cfg.attn_variant == "swa" else 0)
 
-    if use_flash_kernel:
+    if use_flash_kernel and causal and kv_x is None:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True, window=w)
         out = _masked_heads(out.transpose(1, 2), cfg)
@@ -90,7 +99,8 @@ def attend_train(params, x, cfg: ModelConfig, use_flash_kernel=False):
     # the reference divides the x.dtype scores by a float32 sqrt(dh), which
     # promotes them to float32
     scores = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(dh)
-    scores = scores + _causal_mask(S, S, 0, w, x.device)[None, None]
+    if causal:
+        scores = scores + _causal_mask(S, Sk, 0, w, x.device)[None, None]
     p = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhst,bthk->bshk", p, v)
     out = _masked_heads(out, cfg)

@@ -2,8 +2,8 @@
 
 No function here imports jax: the reference's dtypes are mapped by name
 (``np.dtype(x).name``), and its parameter tree comes in as NumPy arrays
-(``jax.device_get`` of ``DecoderLM.init``'s output, or any tree of the
-same layout). A bfloat16 array (the ``ml_dtypes`` type NumPy holds it
+(``jax.device_get`` of ``DecoderLM.init``'s or ``EncDecLM.init``'s
+output, or any tree of the same layout). A bfloat16 array (the ``ml_dtypes`` type NumPy holds it
 in) crosses by its 16-bit pattern, so every bit is kept.
 """
 from __future__ import annotations
@@ -52,59 +52,81 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else to_tensor(np.asarray(a))
 
 
-def from_reference_layout(tree, n_layers: int, take) -> dict:
+# the reference's stacked layer groups ([L, ...] leaves): DecoderLM's
+# blocks, EncDecLM's encoder and decoder blocks
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def layer_counts(names) -> dict:
+    """``{group: layers}`` of the stacked groups among the port's parameter
+    names (``blocks.{i}.…``, ``enc_blocks.{i}.…``, ``dec_blocks.{i}.…``)."""
+    out = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        if head in STACKED:
+            i = int(rest.partition(".")[0])
+            out[head] = max(out.get(head, 0), i + 1)
+    return out
+
+
+def from_reference_layout(tree, n_layers: dict, take) -> dict:
     """``{port name: take(leaf, i)}`` for the leaves of a tree in the
-    reference's ``DecoderLM`` layout: ``take(leaf, None)`` for ``embed``,
-    ``final_norm`` and ``lm_head``, and ``take(leaf, i)`` for layer ``i`` <
-    ``n_layers`` of each stacked ``blocks`` leaf (``blocks.{i}.{key}`` or
-    ``blocks.{i}.{group}.{name}``). A leaf may be anything, a tuple too."""
-    out = {n: take(a, None) for n, a in tree.items() if n != "blocks"}
-    blocks = tree.get("blocks", {})
-    for i in range(n_layers):
-        for key, val in blocks.items():
-            group = val.items() if isinstance(val, dict) else [(None, val)]
-            for name, a in group:
-                out[".".join(filter(None, ("blocks", str(i), key, name)))] = (
-                    take(a, i))
+    reference's ``DecoderLM`` or ``EncDecLM`` layout: ``take(leaf, None)``
+    for each unstacked leaf (``embed``, ``final_norm``, ``lm_head``,
+    ``enc_norm``), and ``take(leaf, i)`` for layer ``i`` < ``n_layers[g]``
+    of each leaf of a stacked group ``g`` (``{g}.{i}.{key}`` or
+    ``{g}.{i}.{group}.{name}``). A leaf may be anything, a tuple too."""
+    out = {n: take(a, None) for n, a in tree.items() if n not in STACKED}
+    for stack, L in n_layers.items():
+        for i in range(L):
+            for key, val in tree[stack].items():
+                group = val.items() if isinstance(val, dict) else [(None, val)]
+                for name, a in group:
+                    out[".".join(filter(None, (stack, str(i), key, name)))] = (
+                        take(a, i))
     return out
 
 
 def params_from_reference(tree) -> dict:
-    """The port's ``DecoderLM`` state dict from the reference's
-    ``DecoderLM.init`` tree (NumPy arrays, or tensors as
+    """The port's ``DecoderLM`` or ``EncDecLM`` state dict from the
+    reference's ``init`` tree (NumPy arrays, or tensors as
     :func:`params_to_reference` gives them): ``embed``, stacked ``blocks``
-    [L, ...], ``final_norm`` and (untied) ``lm_head``. Each block carries
-    ``ln1`` and ``ln2`` and its groups as they are, each array in its own
-    dtype: ``attn.{wq,wk,wv,wo}`` and ``ffn.{w1,w3,w2}`` (dense) or
-    ``moe.{router,w1,w3,w2}`` and, with shared experts,
-    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router stays
+    [L, ...], ``final_norm`` and (untied) ``lm_head``; or ``embed``,
+    ``enc_blocks``, ``enc_norm``, ``dec_blocks``, ``final_norm`` and
+    ``lm_head``. Each block carries ``ln1`` and ``ln2`` and its groups as
+    they are, each array in its own dtype: ``attn.{wq,wk,wv,wo}`` and
+    ``ffn.{w1,w3,w2}`` (dense, vlm, an encoder block), with
+    ``xattn.{wq,wk,wv,wo}`` and ``ln_x`` (a decoder block of an
+    encoder-decoder), or ``moe.{router,w1,w3,w2}`` and, with shared
+    experts, ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router stays
     float32), or ``tm.{mu, shift_lora_a, shift_lora_b, wr, wk, wv, wg, wo,
     w0, w_lora_a, w_lora_b, u, ln_out}`` and ``cm.{mu_k, wk, wv}`` (ssm)."""
     def take(a, i):
         if isinstance(a, torch.Tensor):
             return a if i is None else a[i]
         return to_tensor(np.asarray(a) if i is None else np.asarray(a)[i])
-    L = np.shape(tree["blocks"]["ln1"])[0]
-    return from_reference_layout(tree, L, take)
+    n_layers = {g: np.shape(tree[g]["ln1"])[0] for g in STACKED if g in tree}
+    return from_reference_layout(tree, n_layers, take)
 
 
 def params_to_reference(sd: dict) -> dict:
     """The inverse of :func:`params_from_reference`: the reference's tree
-    of ``DecoderLM`` parameters from a dict of the port's names (a state
-    dict, or the dicts of an optimizer state), each layer's
-    ``blocks.{i}.…`` tensors stacked into one ``[L, ...]`` tensor on their
-    device (``wq`` [L, d, H, dh], ``moe.w1`` [L, E, d, f], …)."""
+    of ``DecoderLM`` or ``EncDecLM`` parameters from a dict of the port's
+    names (a state dict, or the dicts of an optimizer state), each
+    layer's ``{group}.{i}.…`` tensors stacked into one ``[L, ...]`` tensor
+    on their device (``blocks.attn.wq`` [L, d, H, dh], ``moe.w1``
+    [L, E, d, f], ``dec_blocks.xattn.wq``, …)."""
     tree, layers = {}, {}
     for name, t in sd.items():
         head, _, rest = name.partition(".")
-        if head != "blocks":
+        if head not in STACKED:
             tree[name] = t
             continue
         i, _, leaf = rest.partition(".")
-        layers.setdefault(leaf, {})[int(i)] = t
-    if layers:
-        blocks = tree["blocks"] = {}
-        for leaf, per in layers.items():
+        layers.setdefault(head, {}).setdefault(leaf, {})[int(i)] = t
+    for stack, per_leaf in layers.items():
+        blocks = tree[stack] = {}
+        for leaf, per in per_leaf.items():
             group, _, name = leaf.rpartition(".")
             node = blocks.setdefault(group, {}) if group else blocks
             node[name] = torch.stack([per[i] for i in range(len(per))])

@@ -1,30 +1,36 @@
-"""Decoder-only transformer assembly: the dense, moe and ssm (rwkv6)
-families.
+"""Decoder-only / encoder-decoder transformer assembly: the dense, vlm,
+moe and ssm (rwkv6) families, and the encoder-decoder.
 
-A copy of the dense, moe and ssm parts of ``repro/models/transformer.py``
-in PyTorch: pre-norm residual blocks of GQA attention and a SwiGLU FFN
-(dense) or a top-k expert FFN (moe, :mod:`.moe`), or of RWKV6 time mix
-and channel mix (ssm, attention-free). The model is an ``nn.Module`` that
-holds its weights in the reference's shapes (``wq`` [d, H, dh], ``wo``
-[H, dh, d], ``w1`` [d, f], ``moe.w1`` [E, d, f], ``tm.mu`` [5, d], …), one
-block per layer, so a reference parameter tree carries across as a plain
-copy (:mod:`.convert`). The layers are a Python loop where the reference
-scans.
+A copy of the dense, vlm, moe, ssm and encdec parts of
+``repro/models/transformer.py`` in PyTorch: pre-norm residual blocks of
+GQA attention and a SwiGLU FFN (dense, vlm) or a top-k expert FFN (moe,
+:mod:`.moe`), or of RWKV6 time mix and channel mix (ssm,
+attention-free). A vlm model puts frontend embeddings (the stubbed vision
+tower's patch embeddings) before its token embeddings. ``EncDecLM`` is a
+local-attention encoder over frontend embeddings (audio frames) and a
+causal decoder whose blocks add cross attention to the encoder's output.
+The models are ``nn.Module``s that hold their weights in the reference's
+shapes (``wq`` [d, H, dh], ``wo`` [H, dh, d], ``w1`` [d, f], ``moe.w1``
+[E, d, f], ``tm.mu`` [5, d], …), one block per layer, so a reference
+parameter tree carries across as a plain copy (:mod:`.convert`). The
+layers are a Python loop where the reference scans.
 
-``DecoderLM(cfg, use_kernels=True)`` runs the hand-written kernels:
-prefill attention through K3, the RWKV6 scan through K4, and the three
-expert products of every MoE layer, in prefill and decode, through K5.
-``use_kernels=False`` is the reference's route (einsum attention, the
-per-token recurrence, the expert einsums). Both compute the same
-function. The kernels have no backward, so training takes the
-reference's route (``launch.steps.make_train_step``). ``remat=True``
-recomputes each block's activations in the backward pass, as the
-reference's ``jax.checkpoint`` of its scanned layer body does. Other
-families raise ``NotImplementedError``. The model's weights live on
-``cuda:0`` unless the caller names another device.
+``use_kernels=True`` runs the hand-written kernels: causal self attention
+over a sequence (prefill, the encoder, the decoder's teacher-forced pass)
+through K3, the RWKV6 scan through K4, and the three expert products of
+every MoE layer, in prefill and decode, through K5. ``use_kernels=False``
+is the reference's route (einsum attention, the per-token recurrence, the
+expert einsums). Both compute the same function. The kernels have no
+backward, so training takes the reference's route
+(``launch.steps.make_train_step``). ``remat=True`` recomputes each
+block's activations in the backward pass, as the reference's
+``jax.checkpoint`` of its scanned layer body does. The hybrid family
+raises ``NotImplementedError``. The models' weights live on ``cuda:0``
+unless the caller names another device.
 """
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 
 import torch
@@ -41,29 +47,19 @@ from .common import (ModelConfig, cross_entropy_loss, dense_init, embed_init,
 
 # families the port has not reached -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "hybrid": "item 5 (the hybrid, vlm and encoder-decoder families)",
-    "vlm": "item 5 (the hybrid, vlm and encoder-decoder families)",
-    "encdec": "item 5 (the hybrid, vlm and encoder-decoder families)",
+    "hybrid": "item 5c (the hybrid family, hymba-1.5b)",
 }
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` is a plain dense, a moe
-    or an ssm (rwkv6) decoder-only model."""
-    family = cfg.family
-    if cfg.hybrid:
-        family = "hybrid"
-    elif cfg.n_experts:
-        family = "moe"
-    elif cfg.encoder_layers:
-        family = "encdec"
-    elif cfg.n_frontend_embeds and family == "dense":
-        family = "vlm"
-    if family not in ("dense", "moe", "ssm"):
+    """Raise ``NotImplementedError`` for a family the port has not reached:
+    the hybrid (parallel attention and Mamba heads)."""
+    family = "hybrid" if cfg.hybrid else cfg.family
+    if family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {family} family is not ported yet; see "
             f"ROADMAP.md, modules still to port, "
-            f"{NOT_PORTED.get(family, 'section 1')}")
+            f"{NOT_PORTED[family]}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +75,12 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_block_params(gen: torch.Generator, cfg: ModelConfig,
+                      cross_attention: bool = False) -> dict:
     """A layer's weights, but for a moe layer's expert weights:
     ``DecoderLM.init`` draws those next, straight into their parameters
-    (``moe.init_moe_params``)."""
+    (``moe.init_moe_params``). ``cross_attention`` adds a decoder block's
+    ``xattn`` and ``ln_x``."""
     ones = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
     p = {"ln1": ones, "ln2": ones.clone()}
     if cfg.family == "ssm":
@@ -90,6 +88,9 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
         return p
     p["attn"] = attn.init_attn_params(gen, cfg)
+    if cross_attention:
+        p["xattn"] = attn.init_attn_params(gen, cfg)
+        p["ln_x"] = ones.clone()
     if not cfg.n_experts:
         p["ffn"] = init_ffn_params(gen, cfg)
     return p
@@ -99,23 +100,34 @@ def _empty(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+def _attn_params(cfg: ModelConfig, device) -> nn.ParameterDict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
+    return nn.ParameterDict({
+        "wq": _empty((d, H, dh), dt, device),
+        "wk": _empty((d, KV, dh), dt, device),
+        "wv": _empty((d, KV, dh), dt, device),
+        "wo": _empty((H, dh, d), dt, device)})
+
+
 class Block(nn.Module):
     """One dense or moe block's weights: ``ln1``, ``ln2``,
     ``attn.{wq,wk,wv,wo}``, and ``ffn.{w1,w3,w2}`` (dense) or
     ``moe.{router,w1,w3,w2}`` with, given shared experts,
-    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router float32)."""
+    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router float32).
+    A decoder block of an encoder-decoder (``cross_attention``) adds
+    ``xattn.{wq,wk,wv,wo}`` and ``ln_x``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 cross_attention: bool = False):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-        H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
         self.ln1 = _empty((d,), dt, device)
         self.ln2 = _empty((d,), dt, device)
-        self.attn = nn.ParameterDict({
-            "wq": _empty((d, H, dh), dt, device),
-            "wk": _empty((d, KV, dh), dt, device),
-            "wv": _empty((d, KV, dh), dt, device),
-            "wo": _empty((H, dh, d), dt, device)})
+        self.attn = _attn_params(cfg, device)
+        if cross_attention:
+            self.xattn = _attn_params(cfg, device)
+            self.ln_x = _empty((d,), dt, device)
         if cfg.n_experts:
             self.moe = nn.ParameterDict({
                 name: _empty(shape, t, device)
@@ -160,8 +172,11 @@ class RWKVBlock(nn.Module):
 # block forward (training / prefill path)
 
 
-def block_train(p, x, cfg: ModelConfig, return_kv=False, use_kernels=False):
-    """One residual block over the full sequence. Returns (x, aux, kv)."""
+def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
+                use_kernels=False):
+    """One residual block over the full sequence. Returns (x, aux, kv).
+    ``enc_out`` (a decoder block of an encoder-decoder) adds cross
+    attention to it after the self attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     kv = None
@@ -180,6 +195,10 @@ def block_train(p, x, cfg: ModelConfig, return_kv=False, use_kernels=False):
         # re-derive K/V for the cache, as the reference does
         kv = _project_kv(p.attn, h, cfg)
     x = x + y
+    if enc_out is not None:
+        hx = rmsnorm(x, p.ln_x, cfg.norm_eps)
+        x = x + attn.attend_train(p.xattn, hx, cfg, kv_x=enc_out,
+                                  causal=False)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
         y, moe_aux = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
@@ -213,20 +232,30 @@ def _layer_view(names, tensors) -> SimpleNamespace:
     return SimpleNamespace(**p)
 
 
-def block_train_remat(blk, x, cfg: ModelConfig, use_kernels=False):
-    """``block_train`` of ``blk`` under ``torch.utils.checkpoint``: the
-    block's activations are recomputed in the backward pass. The block's
-    tensors go in as arguments, so the recomputation reads the ones of the
-    forward pass even where ``torch.func.functional_call`` swapped them in
-    for that pass only. Returns (x, aux)."""
+def encoder_block(p, x, cfg: ModelConfig, window: int, use_kernels=False):
+    """One encoder block of an encoder-decoder: causal self attention
+    within ``window`` (no cross attention), then the SwiGLU FFN."""
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    x = x + attn.attend_train(p.attn, h, cfg, window=window, causal=True,
+                              use_flash_kernel=use_kernels)
+    h = rmsnorm(x, p.ln2, cfg.norm_eps)
+    return x + swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
+
+
+def remat(body, blk, x, *extra):
+    """``body(p, x, *extra)`` of block ``blk``'s parameters ``p`` under
+    ``torch.utils.checkpoint``: the block's activations are recomputed in
+    the backward pass. The block's tensors (and ``extra``, tensors or
+    not) go in as arguments, so the recomputation reads the ones of the
+    forward pass even where ``torch.func.functional_call`` swapped them
+    in for that pass only."""
     names, tensors = zip(*blk.named_parameters())
+    n = len(extra)
 
-    def body(x, *tensors):
-        y, aux, _ = block_train(_layer_view(names, tensors), x, cfg,
-                                use_kernels=use_kernels)
-        return y, aux
+    def run(x, *args):
+        return body(_layer_view(names, args[n:]), x, *args[:n])
 
-    return torch.utils.checkpoint.checkpoint(body, x, *tensors,
+    return torch.utils.checkpoint.checkpoint(run, x, *extra, *tensors,
                                              use_reentrant=False)
 
 
@@ -234,10 +263,13 @@ def block_train_remat(blk, x, cfg: ModelConfig, use_kernels=False):
 # block decode (one token)
 
 
-def block_decode(p, x, cache, cfg: ModelConfig, use_kernels=False):
+def block_decode(p, x, cache, cfg: ModelConfig, enc_kv=None,
+                 use_kernels=False):
     """x: [B,1,d]; cache is the layer's KVCache (updated in place) or, for
     ssm, its RWKVState (left as it was; the new state is returned).
-    ``use_kernels`` sends a moe block's expert products through K5."""
+    ``enc_kv`` (a decoder block of an encoder-decoder) is the layer's
+    cross-attention (k, v) of the encoder's output. ``use_kernels`` sends
+    a moe block's expert products through K5."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
         y, st = ssm_mod.rwkv_time_mix_decode(p.tm, h, cache, cfg)
@@ -247,6 +279,9 @@ def block_decode(p, x, cache, cfg: ModelConfig, use_kernels=False):
         return x + y2, st._replace(shift_cm=h2[:, 0])
     y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
     x = x + y
+    if enc_kv is not None:
+        hx = rmsnorm(x, p.ln_x, cfg.norm_eps)
+        x = x + _cross_attend_cached(p.xattn, hx, enc_kv, cfg)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
     if cfg.n_experts:
         y, _ = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
@@ -255,12 +290,71 @@ def block_decode(p, x, cache, cfg: ModelConfig, use_kernels=False):
     return x + y, new_cache
 
 
+def _cross_attend_cached(ap, x, enc_kv, cfg: ModelConfig):
+    """Cross attention against precomputed encoder K/V: enc_kv = (k, v).
+    As the reference's, it applies no head mask."""
+    k, v = enc_kv
+    H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
+    q = torch.einsum("bsd,dhk->bshk", x, ap["wq"])
+    kk = attn._repeat_kv(k, H // KV)
+    vv = attn._repeat_kv(v, H // KV)
+    s = torch.einsum("bshk,bthk->bhst", q, kk).float() / math.sqrt(dh)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", pr, vv)
+    return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+
+
 # ---------------------------------------------------------------------------
 # the model
 
 
+def _fill_block(gen: torch.Generator, cfg: ModelConfig, blk: nn.Module,
+                cross_attention: bool = False):
+    """Fill ``blk``'s weights from ``gen`` (``init_block_params``, then a
+    moe block's experts)."""
+    for key, val in init_block_params(gen, cfg, cross_attention).items():
+        if isinstance(val, dict):  # a group: attn, xattn, ffn, tm, cm
+            for name, t in val.items():
+                getattr(blk, key)[name].copy_(t)
+        else:
+            getattr(blk, key).copy_(val)
+    if cfg.n_experts:
+        moe_mod.init_moe_params(gen, cfg, blk.moe)
+
+
+def _head_logits(x, head, cfg: ModelConfig):
+    logits = x @ head.to(x.dtype)
+    vm = vocab_mask(cfg, x.device)
+    if vm is not None:
+        logits = logits + vm.to(logits.dtype)
+    return logits
+
+
+def _stacked_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+                      n_layers: int) -> attn.KVCache:
+    one = attn.init_cache(cfg, batch, cache_len, cfg.dtype, device)
+    return attn.KVCache(*(t.expand(n_layers, *t.shape).clone() for t in one))
+
+
+def _decode_layers(blocks, x, cache: attn.KVCache, cfg: ModelConfig,
+                   enc_kv=None, use_kernels=False):
+    """``block_decode`` of each block on its layer of the stacked KV
+    cache (and of ``enc_kv`` (k, v) [L, ...]); returns x and the cache
+    with each layer's new length."""
+    lengths = []
+    for i, blk in enumerate(blocks):
+        layer = attn.KVCache(cache.k[i], cache.v[i], cache.length[i])
+        x, layer = block_decode(
+            blk, x, layer, cfg,
+            enc_kv=None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i]),
+            use_kernels=use_kernels)
+        lengths.append(layer.length)
+    return x, attn.KVCache(cache.k, cache.v, torch.stack(lengths))
+
+
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense, the moe or the ssm (rwkv6) family.
+    """Decoder-only LM of the dense, the vlm, the moe or the ssm (rwkv6)
+    family.
 
     The weights are allocated on ``device`` uninitialised (``None``:
     ``cuda:0``, which raises ``RuntimeError`` on a host without CUDA; the
@@ -273,6 +367,13 @@ class DecoderLM(nn.Module):
     length [L] (dense), or an ``RWKVState`` shift, shift_cm [L, B, d],
     S [L, B, H, dh, dh] float32 (ssm, whose prefill ignores ``cache_len``,
     as the reference's does). :meth:`decode_step` updates either in place.
+
+    A vlm's ``frontend_embeds`` [B, N, d] (:meth:`loss`, :meth:`logits_fn`,
+    :meth:`prefill`) go before the token embeddings; the loss and the
+    logits drop their N positions. As in the reference, a full-attention
+    prefill's cache holds every position it saw even where ``cache_len``
+    is shorter (the vlm demo's ``prompt_len + gen``): the cache is then
+    full, and each decode step overwrites the oldest slot (``pos % C``).
 
     ``remat=True`` runs each block of :meth:`loss` and :meth:`logits_fn`
     under ``torch.utils.checkpoint`` while autograd records (the
@@ -312,14 +413,7 @@ class DecoderLM(nn.Module):
         self.embed.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                     cfg.param_dtype))
         for blk in self.blocks:
-            for key, val in init_block_params(gen, cfg).items():
-                if isinstance(val, dict):  # a group: attn, ffn, tm, cm
-                    for name, t in val.items():
-                        getattr(blk, key)[name].copy_(t)
-                else:
-                    getattr(blk, key).copy_(val)
-            if cfg.n_experts:
-                moe_mod.init_moe_params(gen, cfg, blk.moe)
+            _fill_block(gen, cfg, blk)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
@@ -327,35 +421,39 @@ class DecoderLM(nn.Module):
         return self
 
     # -- shared trunk ----------------------------------------------------
-    def _embed(self, tokens):
-        return self.embed[tokens].to(self.cfg.dtype)
+    def _embed(self, tokens, frontend_embeds=None):
+        x = self.embed[tokens].to(self.cfg.dtype)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(self.cfg.dtype), x], dim=1)
+        return x
 
     def _trunk(self, x):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        remat = self.remat and torch.is_grad_enabled()
+        checkpointed = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            if remat:
-                x, a = block_train_remat(blk, x, self.cfg,
-                                         use_kernels=self.use_kernels)
+            if checkpointed:
+                x, a = remat(self._block, blk, x)
             else:
-                x, a, _ = block_train(blk, x, self.cfg,
-                                      use_kernels=self.use_kernels)
+                x, a = self._block(blk, x)
             aux = aux + a
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
+    def _block(self, p, x):
+        x, aux, _ = block_train(p, x, self.cfg, use_kernels=self.use_kernels)
+        return x, aux
+
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        logits = x @ head.to(x.dtype)
-        vm = vocab_mask(self.cfg, x.device)
-        if vm is not None:
-            logits = logits + vm.to(logits.dtype)
-        return logits
+        return _head_logits(x, head, self.cfg)
 
     # -- training --------------------------------------------------------
     def loss(self, batch):
-        """batch: {tokens [B,S], labels [B,S], (mask [B,S])}."""
-        x, aux = self._trunk(self._embed(batch["tokens"]))
-        logits = self._logits(x)
+        """batch: {tokens [B,S], labels [B,S], (mask [B,S]),
+        (frontend_embeds [B,N,d])}."""
+        fe = batch.get("frontend_embeds")
+        x, aux = self._trunk(self._embed(batch["tokens"], fe))
+        n_fe = 0 if fe is None else fe.shape[1]
+        logits = self._logits(x[:, n_fe:])
         return cross_entropy_loss(logits, batch["labels"],
                                   batch.get("mask")) + 0.01 * aux
 
@@ -364,18 +462,19 @@ class DecoderLM(nn.Module):
         return self.loss(batch)
 
     def logits_fn(self, batch):
-        x, _ = self._trunk(self._embed(batch["tokens"]))
-        return self._logits(x)
+        fe = batch.get("frontend_embeds")
+        x, _ = self._trunk(self._embed(batch["tokens"], fe))
+        n_fe = 0 if fe is None else fe.shape[1]
+        return self._logits(x[:, n_fe:])
 
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int):
         if self.cfg.family == "ssm":
             one = ssm_mod.init_rwkv_state(self.cfg, batch, self.device)
-        else:
-            one = attn.init_cache(self.cfg, batch, cache_len, self.cfg.dtype,
-                                  self.device)
-        L = self.cfg.n_layers
-        return type(one)(*(t.expand(L, *t.shape).clone() for t in one))
+            L = self.cfg.n_layers
+            return type(one)(*(t.expand(L, *t.shape).clone() for t in one))
+        return _stacked_kv_cache(self.cfg, batch, cache_len, self.device,
+                                 self.cfg.n_layers)
 
     def decode_step(self, cache, tokens):
         """tokens: [B, 1] -> (logits [B,1,V], cache). The cache's tensors
@@ -390,20 +489,16 @@ class DecoderLM(nn.Module):
                     old.copy_(t)
             x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
             return self._logits(x), cache
-        lengths = []
-        for i, blk in enumerate(self.blocks):
-            layer = attn.KVCache(cache.k[i], cache.v[i], cache.length[i])
-            x, layer = block_decode(blk, x, layer, self.cfg,
-                                    use_kernels=self.use_kernels)
-            lengths.append(layer.length)
+        x, cache = _decode_layers(self.blocks, x, cache, self.cfg,
+                                  use_kernels=self.use_kernels)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x), attn.KVCache(cache.k, cache.v,
-                                             torch.stack(lengths))
+        return self._logits(x), cache
 
-    def prefill(self, tokens, cache_len: int):
-        """Full forward returning (last-position logits, populated cache)."""
+    def prefill(self, tokens, cache_len: int, frontend_embeds=None):
+        """Full forward returning (last-position logits, populated cache).
+        A vlm's ``frontend_embeds`` [B, N, d] go before the tokens."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, frontend_embeds)
         S = x.shape[1]
         if cfg.family == "ssm":
             states = []
@@ -440,3 +535,131 @@ class DecoderLM(nn.Module):
                             device=x.device)
         return self._logits(x[:, -1:]), attn.KVCache(k=ks_, v=vs_,
                                                      length=length)
+
+
+class EncDecLM(nn.Module):
+    """Encoder-decoder (audio) model: a local-attention encoder over
+    frontend embeddings (frames), a causal decoder with cross attention.
+
+    The weights, as the reference's ``EncDecLM.init`` tree: ``embed``
+    [vocab, d] (unpadded, unlike ``lm_head`` [d, vocab_padded]),
+    ``enc_blocks``, ``enc_norm``, ``dec_blocks`` (each with ``xattn`` and
+    ``ln_x``), ``final_norm``, ``lm_head``; allocated on ``device``
+    (``None``: ``cuda:0``, which raises ``RuntimeError`` without CUDA).
+    :meth:`encode` runs causal self attention within ``encoder_window``
+    (1024 when the config gives none) on K3 with ``use_kernels``; so do
+    the decoder's self attention in :meth:`logits_fn` and :meth:`loss`,
+    whose cross attention stays on the einsum chain, as do
+    :meth:`decode_step`'s. :meth:`loss` reads ``batch["frontend_embeds"]``
+    (the frames), as the reference's does. ``remat`` checkpoints each
+    encoder and decoder block while autograd records.
+    """
+
+    def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
+                 device=None, remat: bool = False):
+        super().__init__()
+        check_ported(cfg)
+        if cfg.encoder_layers <= 0:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                             "encoder_layers > 0")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+        self.remat = remat
+        dt, d = cfg.param_dtype, cfg.d_model
+        self.embed = _empty((cfg.vocab, d), dt, device)
+        self.enc_blocks = nn.ModuleList(Block(cfg, device)
+                                        for _ in range(cfg.encoder_layers))
+        self.enc_norm = _empty((d,), dt, device)
+        self.dec_blocks = nn.ModuleList(
+            Block(cfg, device, cross_attention=True)
+            for _ in range(cfg.n_layers))
+        self.final_norm = _empty((d,), dt, device)
+        self.lm_head = _empty((d, cfg.vocab_padded), dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "EncDecLM":
+        """Fill the weights from ``gen`` (a generator on the model's
+        device); returns the model."""
+        cfg = self.cfg
+        self.embed.copy_(embed_init(gen, cfg.vocab, cfg.d_model,
+                                    cfg.param_dtype))
+        for blk in self.enc_blocks:
+            _fill_block(gen, cfg, blk)
+        self.enc_norm.fill_(1.0)
+        for blk in self.dec_blocks:
+            _fill_block(gen, cfg, blk, cross_attention=True)
+        self.final_norm.fill_(1.0)
+        self.lm_head.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                                      cfg.param_dtype).T)
+        return self
+
+    def _checkpointed(self):
+        return self.remat and torch.is_grad_enabled()
+
+    def _enc_block(self, p, x):
+        return encoder_block(p, x, self.cfg, self.cfg.encoder_window or 1024,
+                             self.use_kernels)
+
+    def _dec_block(self, p, x, enc):
+        x, _, _ = block_train(p, x, self.cfg, enc_out=enc,
+                              use_kernels=self.use_kernels)
+        return x
+
+    def encode(self, frames):
+        """frames [B, Se, d] -> the encoder's output [B, Se, d]."""
+        x = frames.to(self.cfg.dtype)
+        for blk in self.enc_blocks:
+            x = (remat(self._enc_block, blk, x) if self._checkpointed()
+                 else self._enc_block(blk, x))
+        return rmsnorm(x, self.enc_norm, self.cfg.norm_eps)
+
+    def logits_fn(self, batch):
+        """The decoder's teacher-forced logits [B, Sd, V] of
+        ``batch["tokens"]`` [B, Sd] given ``batch["frontend_embeds"]``
+        [B, Se, d]: what :meth:`loss` scores."""
+        enc = self.encode(batch["frontend_embeds"])
+        x = self.embed[batch["tokens"]].to(self.cfg.dtype)
+        for blk in self.dec_blocks:
+            x = (remat(self._dec_block, blk, x, enc) if self._checkpointed()
+                 else self._dec_block(blk, x, enc))
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        return _head_logits(x, self.lm_head, self.cfg)
+
+    def loss(self, batch):
+        """batch: {frontend_embeds [B,Se,d], tokens [B,Sd], labels [B,Sd],
+        (mask [B,Sd])}."""
+        return cross_entropy_loss(self.logits_fn(batch), batch["labels"],
+                                  batch.get("mask"))
+
+    def forward(self, batch):
+        """The training loss of ``batch``: :meth:`loss`."""
+        return self.loss(batch)
+
+    def init_cache(self, batch: int, cache_len: int) -> attn.KVCache:
+        """The decoder's self-attention cache, stacked over its layers."""
+        return _stacked_kv_cache(self.cfg, batch, cache_len, self.device,
+                                 self.cfg.n_layers)
+
+    def precompute_enc_kv(self, enc_out):
+        """Per decoder layer, the cross attention's K/V of the encoder's
+        output: (k, v), each [L, B, Se, KV, dh]."""
+        ks = [torch.einsum("bsd,dhk->bshk", enc_out, blk.xattn["wk"])
+              for blk in self.dec_blocks]
+        vs = [torch.einsum("bsd,dhk->bshk", enc_out, blk.xattn["wv"])
+              for blk in self.dec_blocks]
+        return torch.stack(ks), torch.stack(vs)
+
+    def decode_step(self, cache, tokens, enc_kv):
+        """tokens: [B, 1] -> (logits [B,1,V], cache), attending to the
+        encoder through ``enc_kv`` (:meth:`precompute_enc_kv`). The cache's
+        k/v are updated in place; the returned cache has ``length + 1``."""
+        x = self.embed[tokens].to(self.cfg.dtype)
+        x, cache = _decode_layers(self.dec_blocks, x, cache, self.cfg,
+                                  enc_kv=enc_kv, use_kernels=self.use_kernels)
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        return _head_logits(x, self.lm_head, self.cfg), cache

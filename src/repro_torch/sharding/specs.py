@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.convert import (from_reference_layout,
-                                        params_to_reference)
+                                        layer_counts, params_to_reference)
 from repro_torch.tree import leaves_with_path, map_with_path
 
 
@@ -194,18 +194,19 @@ def param_specs(params_struct, mesh, fsdp: bool = True, tp: bool = True,
 
 
 def port_param_specs(state: dict, mesh, **strategy) -> dict:
-    """Specs of the port's parameters (a dict of ``DecoderLM`` names) or of
-    its optimizer state (``{"step", "m", "v"}`` or ``{"step", "mu"}``, each
-    moment such a dict), keyed as ``state``. They are computed on the
-    reference's stacked layout (:func:`params_to_reference`, on the meta
-    device); a per-layer tensor ``blocks.{i}.…`` takes the stacked spec
-    without its ``L`` entry, which the rules never shard."""
+    """Specs of the port's parameters (a dict of ``DecoderLM`` or
+    ``EncDecLM`` names) or of its optimizer state (``{"step", "m", "v"}``
+    or ``{"step", "mu"}``, each moment such a dict), keyed as ``state``.
+    They are computed on the reference's stacked layout
+    (:func:`params_to_reference`, on the meta device); a per-layer tensor
+    (``blocks.{i}.…``, ``enc_blocks.{i}.…``, ``dec_blocks.{i}.…``) takes
+    the stacked spec without its ``L`` entry, which the rules never
+    shard."""
     def named(sd):
         meta = {n: torch.empty(t.shape, dtype=t.dtype, device="meta")
                 for n, t in sd.items()}
         specs = param_specs(params_to_reference(meta), mesh, **strategy)
-        n_layers = len({n.split(".")[1] for n in sd if n.startswith("blocks.")})
-        return from_reference_layout(specs, n_layers, _layer_spec)
+        return from_reference_layout(specs, layer_counts(sd), _layer_spec)
 
     # the rules read a leaf's name and its parent's, never a moment's key
     if not any(isinstance(v, dict) for v in state.values()):

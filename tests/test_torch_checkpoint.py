@@ -5,8 +5,10 @@ package's, on the CPU.
   bfloat16 (inf, nan, -0 among them), float32 and an int32 step round
   trips bit for bit, with its extra state; the latest step is found.
 * Reference -> port: ``repro.checkpoint.save_checkpoint`` of a reduced
-  smollm-360m, mixtral-8x22b or rwkv6-1.6b ``(params, adamw state)`` (and
-  smollm in bfloat16) loads into the port's reference-layout tree
+  smollm-360m, mixtral-8x22b, rwkv6-1.6b or seamless-m4t-large-v2 (an
+  ``EncDecLM``: ``enc_blocks``, ``enc_norm``, ``dec_blocks`` with
+  ``xattn`` and ``ln_x``) ``(params, adamw state)`` (and smollm in
+  bfloat16) loads into the port's reference-layout tree
   (``params_to_reference``, ``opt_state_to_reference``), bit for bit, and
   back to the port's names.
 * Port -> reference: the port's file of ``(params, opt_state)`` has the
@@ -39,7 +41,8 @@ from repro_torch.models.convert import (model_config_from_reference,
 from repro_torch.optim import adamw
 
 Pair = collections.namedtuple("Pair", "a b")
-ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b"]
+ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b",
+         "seamless-m4t-large-v2"]
 
 
 def _bits(t):
@@ -200,4 +203,5 @@ def test_port_checkpoint_loads_into_reference(tmp_path, arch):
                     jax.tree_util.tree_leaves(want)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
-    assert o["m"]["blocks"]["ln1"].shape == (cfg.n_layers, cfg.d_model)
+    stack = "dec_blocks" if cfg.encoder_layers else "blocks"
+    assert o["m"][stack]["ln1"].shape == (cfg.n_layers, cfg.d_model)

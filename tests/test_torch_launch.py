@@ -24,10 +24,11 @@ the train driver, the dry run) against the JAX package's, on the CPU.
   ``make_abstract_mesh``; ``repro.launch.dryrun`` is not imported: it sets
   ``XLA_FLAGS`` when imported); a meta run proves the steps' shapes; an
   unported family is an error row.
-* The batched inference example, and a ``cuda``-marked twin of the card
-  against the CPU.
+* The encoder-decoder's and the vlm's step factories against the
+  reference's; the dry run's rows of both families.
+* The batched inference example (its vlm and encoder-decoder branches
+  too), and a ``cuda``-marked twin of the card against the CPU.
 """
-import dataclasses
 import importlib.util
 import json
 import os
@@ -56,7 +57,7 @@ from repro.sharding.specs import _axis_size as ref_axis_size
 from repro_torch.configs import all_archs, get_config
 from repro_torch.launch import dryrun, steps, train
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import SHAPES
+from repro_torch.models import SHAPES, EncDecLM
 from repro_torch.models.convert import (model_config_from_reference,
                                         params_from_reference)
 from repro_torch.optim import Optimizer, adamw
@@ -291,12 +292,83 @@ def test_prefill_and_decode_factories_match_reference(arch):
 
 
 def test_encdec_prefill_step_raises():
-    cfg = get_config("smollm-360m", reduced=True)
-    encdec = dataclasses.replace(cfg, encoder_layers=2)
+    """The step factories raise for the family the port has not reached
+    (the hybrid) and build an encoder-decoder's steps (an ``EncDecLM``)."""
+    hybrid = model_config_from_reference(ref_get_config("hymba-1.5b",
+                                                        reduced=True))
     with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_prefill_step(encdec, "prefill_32k", device="cpu")
+        steps.make_prefill_step(hybrid, "prefill_32k", device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_decode_step(encdec, "decode_32k", device="cpu")
+        steps.make_decode_step(hybrid, "decode_32k", device="cpu")
+    encdec = get_config("seamless-m4t-large-v2", reduced=True)
+    for make, shape in ((steps.make_prefill_step, "prefill_32k"),
+                        (steps.make_decode_step, "decode_32k")):
+        model, _ = make(encdec, shape, device="cpu")
+        assert isinstance(model, EncDecLM) and model.use_kernels
+
+
+def test_encdec_step_factories_match_reference():
+    """The encoder-decoder's prefill step (``encode``, then
+    ``precompute_enc_kv``) and three decode steps against the reference's
+    factories, within ``TOL``."""
+    cfg, params = _ref("seamless-m4t-large-v2")
+    port_cfg = model_config_from_reference(cfg)
+    _, ref_prefill = ref_steps.make_prefill_step(cfg, "prefill_32k")
+    ref_dec_model, ref_decode = ref_steps.make_decode_step(cfg, "decode_32k")
+    model, prefill = steps.make_prefill_step(port_cfg, "prefill_32k",
+                                             device="cpu")
+    dec_model, decode = steps.make_decode_step(port_cfg, "decode_32k",
+                                               device="cpu")
+    sd = _port_params(params)
+    model.load_state_dict(sd)
+    dec_model.load_state_dict(sd)
+    frames = (0.1 * np.random.default_rng(5).standard_normal(
+        (2, 40, cfg.d_model))).astype(np.float32)
+    ref_kv = ref_prefill(params, jnp.asarray(frames))
+    kv = prefill(torch.from_numpy(frames))
+    for got, want in zip(kv, ref_kv):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    ref_cache, cache = ref_dec_model.init_cache(2, 8), dec_model.init_cache(2, 8)
+    tok = np.zeros((2, 1), np.int32)
+    for _ in range(3):
+        want, ref_cache = ref_decode(params, ref_cache, jnp.asarray(tok),
+                                     ref_kv)
+        got, cache = decode(cache, torch.from_numpy(tok), kv)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        tok = np.argmax(np.asarray(want)[:, -1], -1)[:, None].astype(np.int32)
+
+
+def test_vlm_step_factories_match_reference():
+    """The vlm's prefill step with ``frontend_embeds`` (its default cache
+    of the shape's seq) and two decode steps against the reference's."""
+    cfg, params = _ref("llava-next-34b")
+    port_cfg = model_config_from_reference(cfg)
+    _, ref_prefill = ref_steps.make_prefill_step(cfg, "prefill_32k")
+    _, ref_decode = ref_steps.make_decode_step(cfg, "decode_32k")
+    model, prefill = steps.make_prefill_step(port_cfg, "prefill_32k",
+                                             device="cpu")
+    dec_model, decode = steps.make_decode_step(port_cfg, "decode_32k",
+                                               device="cpu")
+    sd = _port_params(params)
+    model.load_state_dict(sd)
+    dec_model.load_state_dict(sd)
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab, (2, 12))
+    fe = (0.02 * rng.standard_normal(
+        (2, cfg.n_frontend_embeds, cfg.d_model))).astype(np.float32)
+    want, ref_cache = ref_prefill(params, jnp.asarray(tokens, jnp.int32),
+                                  frontend_embeds=jnp.asarray(fe))
+    got, cache = prefill(torch.from_numpy(tokens),
+                         frontend_embeds=torch.from_numpy(fe))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert cache.k.shape == ref_cache.k.shape
+    tok = np.argmax(np.asarray(want)[:, -1], -1)[:, None]
+    for _ in range(2):
+        want, ref_cache = ref_decode(params, ref_cache,
+                                     jnp.asarray(tok, jnp.int32))
+        got, cache = decode(cache, torch.from_numpy(tok))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        tok = np.argmax(np.asarray(want)[:, -1], -1)[:, None]
 
 
 def test_synthetic_lm_batch_matches_reference():
@@ -454,6 +526,35 @@ def test_batched_inference_example_runs(capsys):
         assert gen.shape == (2, 4)
     out = capsys.readouterr().out
     assert out.count("decoded 4 tokens × 2 seqs") == 3
+
+
+def test_batched_inference_example_runs_vlm_and_encdec(capsys):
+    """The example's vlm branch (random frontend embeddings before the
+    prompt) and encoder-decoder branch (P random frames encoded, decoding
+    from token 0)."""
+    path = os.path.join(ROOT, "examples", "inference_demo_batched_torch.py")
+    spec = importlib.util.spec_from_file_location("demo_batched_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for arch in ("llava-next-34b", "seamless-m4t-large-v2"):
+        gen = mod.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
+                        "--gen", "4", "--device", "cpu"])
+        assert gen.shape == (2, 4) and (gen >= 0).all() and (gen < 512).all()
+    out = capsys.readouterr().out
+    assert out.count("decoded 4 tokens × 2 seqs") == 2
+    assert out.count("prefill 2×8") == 1  # the encoder-decoder has none
+
+
+def test_dryrun_vlm_and_encdec_rows():
+    """llava's and seamless's dry-run rows: every kind runs on the meta
+    device with the shapes the steps take (no error row)."""
+    for arch, shape in (("llava-next-34b", "prefill_32k"),
+                        ("llava-next-34b", "decode_32k"),
+                        ("seamless-m4t-large-v2", "train_4k"),
+                        ("seamless-m4t-large-v2", "prefill_32k"),
+                        ("seamless-m4t-large-v2", "decode_32k")):
+        rec = dryrun.dryrun_one(arch, shape, "single_pod", verbose=False)
+        assert rec["shapes_ok"] and rec["step_flops"] > 0, (arch, shape)
 
 
 @pytest.mark.cuda

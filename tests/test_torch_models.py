@@ -20,10 +20,11 @@ from a seed with NumPy, so both sides compute on the same numbers:
 * the configs, ``SHAPES`` and ``shape_for_long_context`` field for field,
   the converter (a bfloat16 array crosses bit for bit), every parameter's
   shape and dtype at full width against the reference's (the moe router
-  stays float32 in a bf16 model), the default device (the card, which
-  raises on a host without CUDA), and ``NotImplementedError`` for the
-  families the port has not reached (the rwkv6 model has its own file,
-  tests/test_torch_ssm.py).
+  stays float32 in a bf16 model; llava's and seamless's too), the default
+  device (the card, which raises on a host without CUDA), and
+  ``NotImplementedError`` for the family the port has not reached, the
+  hybrid (the rwkv6 model has its own file, tests/test_torch_ssm.py; the
+  vlm and encoder-decoder models theirs, tests/test_torch_vlm_encdec.py).
 """
 import jax
 import jax.experimental
@@ -48,7 +49,8 @@ from repro.models import build_model as ref_build_model
 from repro.models import shape_for_long_context as ref_long_context
 from repro_torch.configs import all_archs, get_config
 from repro_torch.models import attention as A
-from repro_torch.models import SHAPES, build_model, shape_for_long_context
+from repro_torch.models import (SHAPES, DecoderLM, EncDecLM, build_model,
+                                shape_for_long_context)
 from repro_torch.models.convert import (model_config_from_reference,
                                         params_from_reference, to_tensor,
                                         torch_dtype)
@@ -164,15 +166,19 @@ def test_decoder_matches_reference(arch, variant, flash):
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("hymba-1.5b", "llava-next-34b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-        ref_cfg = ref_get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(model_config_from_reference(ref_cfg), device="cpu")
+    """The hybrid family (hymba-1.5b), the one the port has not reached,
+    raises naming its ROADMAP item; the registry holds the other nine."""
+    arch = "hymba-1.5b"
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+        get_config(arch)
+    ref_cfg = ref_get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+        build_model(model_config_from_reference(ref_cfg), device="cpu")
     assert sorted(all_archs()) == ["granite-3-2b", "kimi-k2-1t-a32b",
-                                   "llama3.2-3b", "mixtral-8x22b",
-                                   "rwkv6-1.6b", "smollm-360m", "stablelm-3b"]
+                                   "llama3.2-3b", "llava-next-34b",
+                                   "mixtral-8x22b", "rwkv6-1.6b",
+                                   "seamless-m4t-large-v2", "smollm-360m",
+                                   "stablelm-3b"]
 
 
 def test_model_defaults_to_the_card():
@@ -186,8 +192,24 @@ def test_model_defaults_to_the_card():
             build_model(cfg)
 
 
+@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_models_default_to_the_card(arch):
+    """The same for the vlm and the encoder-decoder: ``build_model`` of the
+    registry's config (a ``DecoderLM``, an ``EncDecLM``) is on ``cuda:0``
+    or raises."""
+    cfg = get_config(arch, reduced=True)
+    want = EncDecLM if cfg.encoder_layers else DecoderLM
+    assert type(build_model(cfg, device="meta")) is want
+    if torch.cuda.is_available():
+        assert build_model(cfg).device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b",
-                                  "llama3.2-3b"])
+                                  "llama3.2-3b", "llava-next-34b",
+                                  "seamless-m4t-large-v2"])
 def test_full_width_parameters_match_reference(arch):
     """Every parameter of the full-width model, allocated on the meta
     device, has the reference's shape and dtype (``jax.eval_shape`` of its
@@ -195,14 +217,16 @@ def test_full_width_parameters_match_reference(arch):
     ref_cfg = ref_get_config(arch)
     tree = jax.eval_shape(ref_build_model(ref_cfg).init,
                           jax.random.PRNGKey(0))
-    want = {"embed": tree["embed"], "final_norm": tree["final_norm"],
-            "lm_head": tree["lm_head"]}
-    for key, val in tree["blocks"].items():
-        group = val.items() if isinstance(val, dict) else [("", val)]
-        for name, a in group:
-            for i in range(ref_cfg.n_layers):
-                want[".".join(filter(None, ("blocks", str(i), key, name)))] = (
-                    jax.ShapeDtypeStruct(a.shape[1:], a.dtype))
+    stacks = ("blocks", "enc_blocks", "dec_blocks")
+    want = {n: a for n, a in tree.items() if n not in stacks}
+    for stack in (s for s in stacks if s in tree):
+        for key, val in tree[stack].items():
+            group = val.items() if isinstance(val, dict) else [("", val)]
+            for name, a in group:
+                for i in range(a.shape[0]):
+                    want[".".join(filter(None, (stack, str(i), key,
+                                                name)))] = (
+                        jax.ShapeDtypeStruct(a.shape[1:], a.dtype))
     want = {n: (tuple(a.shape), torch_dtype(a.dtype)) for n, a in want.items()}
     model = build_model(get_config(arch), device="meta")
     got = {n: (tuple(t.shape), t.dtype) for n, t in model.state_dict().items()}
@@ -218,7 +242,8 @@ def test_full_width_parameters_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "llama3.2-3b",
                                   "smollm-360m", "stablelm-3b",
-                                  "mixtral-8x22b", "kimi-k2-1t-a32b"])
+                                  "mixtral-8x22b", "kimi-k2-1t-a32b",
+                                  "llava-next-34b", "seamless-m4t-large-v2"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(arch, reduced):
     mine, ref = get_config(arch, reduced=reduced), ref_get_config(arch, reduced)

@@ -2,7 +2,7 @@
 (``repro_torch.launch.mesh``) against the JAX package's, on the CPU.
 
 * For every config of the reference (the ten archs at full width, the
-  three the port has not reached included), on the 1×1, 16×16 and
+  one the port has not reached included), on the 1×1, 16×16 and
   2×16×16 meshes and under every entry of ``STRATEGIES``: the port's
   ``param_specs`` of the parameters and of the default optimizer's state,
   ``batch_specs`` of the train and prefill inputs and ``cache_specs`` of
@@ -10,7 +10,8 @@
   shapes (the reference's ``ShapeDtypeStruct`` trees as meta tensors).
 * For the archs the port runs, ``port_param_specs`` of the port's own
   per-layer parameters (and optimizer state) is the reference's stacked
-  spec without its ``L`` entry.
+  spec without its ``L`` entry: ``blocks``, and the encoder-decoder's
+  ``enc_blocks`` and ``dec_blocks``.
 * ``tree_placements``, the L-dim guard, ``MeshShape`` and the meshes.
 """
 import functools
@@ -130,7 +131,8 @@ def test_port_per_layer_specs_drop_the_layer_dim(arch, mesh):
     cfg = get_config(arch)
     port = params_spec(cfg)
     port_state = default_optimizer(cfg).init(port)
-    n_layers = cfg.n_layers
+    n_layers = {"blocks": cfg.n_layers, "enc_blocks": cfg.encoder_layers,
+                "dec_blocks": cfg.n_layers}
     for strategy, skw in STRATEGIES.items():
         want_p = ref_param_specs(params, ref_mesh, **skw)
         want_s = ref_param_specs(state, ref_mesh, **skw)
@@ -140,15 +142,15 @@ def test_port_per_layer_specs_drop_the_layer_dim(arch, mesh):
         assert got_s.keys() == port_state.keys()
         for name, spec in got_p.items():
             head, _, rest = name.partition(".")
-            if head == "blocks":
+            if head in n_layers:
                 i, _, leaf = rest.partition(".")
-                assert int(i) < n_layers
-                want = _stacked(want_p["blocks"], leaf)
+                assert int(i) < n_layers[head]
+                want = _stacked(want_p[head], leaf)
                 assert want[0] is None
                 assert tuple(spec) == tuple(want)[1:], (strategy, name)
                 for k in [k for k in got_s if k != "step"]:
                     assert tuple(got_s[k][name]) == tuple(
-                        _stacked(want_s[k]["blocks"], leaf))[1:]
+                        _stacked(want_s[k][head], leaf))[1:]
             else:
                 assert tuple(spec) == tuple(want_p[name]), (strategy, name)
                 for k in [k for k in got_s if k != "step"]:

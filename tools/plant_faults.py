@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5, moe,
-train and launch checks on copies of the tree, each with one planted
-fault, to show where each check's tolerance sits.
+train, launch and encdec checks on copies of the tree, each with one
+planted fault, to show where each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
 
@@ -13,7 +13,8 @@ touches (the copy builds its own kernels), and prints, as one JSON line
 per run, what the checks read: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
-card-against-CPU parity, and the error that stopped the run. A
+card-against-CPU parity, the vlm and encdec lines' route, decode and
+teacher-forced checks, and the error that stopped the run. A
 sound tree passes every check; each planted fault must fail one. Needs a
 CUDA device, as chip_smoke.py does.
 """
@@ -54,6 +55,12 @@ FAULTS = {
         ("        if (lane == 0) mbar_arrive(&kv_empty[s_prev]);\n"
          "        wgmma_wait<1>();  // S has arrived", ";"),
         ("k3", "model")),
+    "k3_call_drops_window": (
+        # the model's K3 calls without their window: the encoder of an
+        # encoder-decoder attends to every earlier frame
+        "src/repro_torch/models/attention.py",
+        "v.transpose(1, 2), causal=True, window=w)",
+        "v.transpose(1, 2), causal=True, window=0)", ("encdec",)),
     "k3_causal_diagonal_off_by_one": (
         "src/repro_torch/csrc/flash_attention.cu",
         "ok = ok && kpos <= qpos;", "ok = ok && kpos < qpos;",
@@ -166,7 +173,9 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "worst", "per_layer", "k5_vs_einsum_bf16_model",
         "cache_vs_prefill", "f32_k5_vs_einsum", "model", "logits", "losses",
         "sample_losses", "params", "accuracy_card", "accuracy_cpu",
-        "err_over_limit", "grads", "worst_grad", "worst_param")
+        "err_over_limit", "grads", "worst_grad", "worst_param",
+        "encode_k3_vs_einsum", "decode_k3_vs_einsum_enc_kv",
+        "decode_vs_teacher_forced")
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
@@ -202,7 +211,8 @@ def run(name: str, phase: str) -> dict:
             continue
         rec = json.loads(line)
         if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
-                                "moe", "train_parity", "launch_parity"):
+                                "moe", "train_parity", "launch_parity",
+                                "vlm", "encdec"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,

@@ -5,17 +5,26 @@
         [--batch 4] [--prompt-len 2048] [--gen 16]
     python3 tools/profile_torch_inference.py --arch rwkv6-1.6b
     python3 tools/profile_torch_inference.py --arch mixtral-8x22b
+    python3 tools/profile_torch_inference.py --arch llava-next-34b
+    python3 tools/profile_torch_inference.py --arch seamless-m4t-large-v2 \\
+        --prompt-len 4096
 
 Loads the model as the inference demo does (random weights from a seed,
 on ``cuda:0``), at the depth chip_smoke.py runs it (``smoke_config``:
-mixtral-8x22b 8 of its 56 layers, which is what one card holds; the
-others whole), warms up, then traces one prefill and, apart, the greedy
-decode steps after it under ``torch.profiler`` (device activity only).
+mixtral-8x22b 8 of its 56 layers, which is what one card holds,
+llava-next-34b 8 of its 60; the others whole), warms up, then traces one
+prefill and, apart, the greedy decode steps after it under
+``torch.profiler`` (device activity only). A vlm's prefill takes its
+random frontend embeddings (``make_inputs``) before the prompt, its cache
+holding every position; an encoder-decoder's "prefill" is ``encode`` of
+``--prompt-len`` random frames and ``precompute_enc_kv``, and its decode
+steps start from token 0.
 For each part: wall time, the device's busy time (the sum of kernel and
 copy times), its idle share of the wall time, the time and share of the
 busy time of each hand-written kernel (K3 ``flash_attention``, K4
 ``rwkv_scan``, K5 ``moe_gemm``), and the kernels that took the most
-device time. Prints one JSON object.
+device time; and the peak device memory of the two. Prints one JSON
+object.
 """
 from __future__ import annotations
 
@@ -66,26 +75,54 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     act = [torch.profiler.ProfilerActivity.CUDA]
-    cache_len = args.prompt_len + args.gen
     with torch.inference_mode():
         cfg, model = demo.load_model(smoke_config(args.arch), False, 0, dev)
-        prompts = demo.make_prompts(cfg, args.batch, args.prompt_len, 0, dev)
-        demo.generate(model, prompts, 2)  # warm-up
+        if cfg.encoder_layers:
+            frames = torch.randn(
+                (args.batch, args.prompt_len, cfg.d_model), device=dev,
+                generator=torch.Generator(dev).manual_seed(0)).mul_(0.1)
+            frames = frames.to(cfg.dtype)
+
+            def prefill():
+                return model.precompute_enc_kv(model.encode(frames)), None
+
+            def decode(enc_kv, _):
+                cache = model.init_cache(args.batch, args.gen)
+                tok = torch.zeros((args.batch, 1), dtype=torch.int64,
+                                  device=dev)
+                for _ in range(args.gen - 1):
+                    out, cache = model.decode_step(cache, tok, enc_kv)
+                    tok = torch.argmax(out[:, -1], -1)[:, None]
+        else:
+            prompts, fe = demo.make_inputs(cfg, args.batch, args.prompt_len,
+                                           0, dev)
+            n_fe = 0 if fe is None else fe.shape[1]
+            cache_len = n_fe + args.prompt_len + args.gen
+
+            def prefill():
+                return model.prefill(prompts, cache_len, frontend_embeds=fe)
+
+            def decode(logits, cache):
+                demo.greedy_decode(model, logits, cache, args.gen)
+        decode(*prefill())  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=act) as tp:
             t = time.perf_counter()
-            logits, cache = model.prefill(prompts, cache_len)
+            first = prefill()
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t
         with torch.profiler.profile(activities=act) as td:
             t = time.perf_counter()
-            demo.greedy_decode(model, logits, cache, args.gen)
+            decode(*first)
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
     print(json.dumps({
         "card": nvidia_smi(), "arch": cfg.name, "n_layers": cfg.n_layers,
         "batch": args.batch,
         "prompt_len": args.prompt_len, "gen": args.gen,
+        "max_memory_allocated_mb": peak / 2**20,
         "prefill": device_summary(tp, prefill_s),
         "decode": {**device_summary(td, decode_s),
                    "steps": args.gen - 1,

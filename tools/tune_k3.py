@@ -56,7 +56,6 @@ def child(build_only: bool) -> int:
     sys.path.insert(0, "src")
     sys.path.insert(0, ".")
     import torch
-    import torch.nn.functional as F
 
     import chip_smoke as cs
     from repro_torch.kernels import flash_attention as fa
@@ -76,8 +75,8 @@ def child(build_only: bool) -> int:
                        / (atol + rtol * want.float().abs())).max())
         ms = cs.cuda_ms(torch, lambda: fa.flash_attention(
             q, k, v, causal=causal, window=window), 20)
-        lib = cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 20)
+        lib = cs.cuda_ms(torch, lambda: cs.sdpa(torch, q, k, v, causal,
+                                                window), 20)
         print(json.dumps({"case": name, "ms": ms, "library_ms": lib,
                           "k3_over_library": ms / lib,
                           "err_over_limit": ratio}), flush=True)
