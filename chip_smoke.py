@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs sixteen phases, each
+source, all started together) and then runs seventeen phases, each
 printing JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -59,10 +59,11 @@ printing JSON lines:
    small ragged cases (a non-causal 33 × 77, S = Sk = 1, a window of 16 at
    S = 70), the llava-next-34b prefill shape at batch 1 (H 64, KV 8, S =
    Sk = 4928, dh 128), the seamless-m4t encoder shape (B 4, H = KV = 16,
-   S = Sk = 4096, dh 64, window 1024), and two cases in which K3's
-   producer runs stages ahead of its consumers (two key tiles an item,
-   Sk 256, over 2048 items reading one L2-resident kv head; dh 128 and
-   64). At the llama, mixtral, kimi, llava and seamless shapes
+   S = Sk = 4096, dh 64, window 1024), the hymba-1.5b prefill shape (B 4,
+   H 32, KV 8, S = Sk = 2048, dh 64, window 1024), and two cases in which
+   K3's producer runs stages ahead of its consumers (two key tiles an
+   item, Sk 256, over 2048 items reading one L2-resident kv head; dh 128
+   and 64). At the llama, mixtral, kimi, llava, seamless and hymba shapes
    (``K3_TIMED``): K3, plain and ``scaled_dot_product_attention`` ms over
    CUDA events (SDPA given the window as a boolean mask where it is
    narrower than the keys), the bound (the pairs the mask keeps), TFLOP/s,
@@ -208,6 +209,23 @@ printing JSON lines:
    decode steps' logits on the two routes' cross K/V, and against the
    decoder's teacher-forced logits over the same tokens (``logits_fn``,
    what ``loss`` scores), each within ``LOGIT_TOL``.
+17. ``hybrid`` — hymba-1.5b whole (32 layers, parallel attention and
+   Mamba heads) in bf16 on ``cuda:0`` through ``load_model``,
+   ``make_inputs`` and ``generate`` (``HYMBA``): batch 4, a prompt of
+   2048 over its sliding window of 1024 (the KV ring buffer of 1024 slots
+   wraps), 16 greedy tokens. K3's count is set to 0 just before this run
+   and read just after (one launch per prefill layer, within the window:
+   32). Then, on the same weights: the K3 route against the einsum route
+   within ``HYBRID_ROUTE_TOL`` (the padded vocab's columns sliced off);
+   ``decode_step`` after ``prefill(S - 1)`` against ``prefill(S)``: the
+   logits within ``LOGIT_TOL``, the ring buffer at the new slot
+   ``(S - 1) % 1024`` and at every other slot within ``CACHE_TOL``, each
+   layer's Mamba conv and h within ``HYBRID_STATE_TOL``. The same seed's
+   weights in float32, whole: the two routes, and decode against prefill,
+   within ``HYBRID_F32_TOL``. The card against the CPU in float32 (the
+   same width cut to 2 layers, batch 1, a prompt of 256, one decode step:
+   logits, K/V, Mamba state) within ``HYBRID_F32_TOL`` (the Mamba scan
+   has no kernel to hold to a plain version).
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -220,12 +238,13 @@ a checkout, it exits non-zero and prints no result.
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
 ``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13),
-``launch`` (14), ``vlm`` (15) and ``encdec`` (16), after ``env``, and
-then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
+``launch`` (14), ``vlm`` (15), ``encdec`` (16) and ``hybrid`` (17), after
+``env``, and then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
 the quick check of a new K3, K4 or K5 build, ``--phases service`` runs the
 service alone, ``--phases train`` the federated training alone,
 ``--phases launch`` the DecoderLM training, checkpoint and serving alone,
-``--phases vlm`` and ``--phases encdec`` llava and seamless alone.
+``--phases vlm``, ``--phases encdec`` and ``--phases hybrid`` llava,
+seamless and hymba alone.
 """
 from __future__ import annotations
 
@@ -296,16 +315,19 @@ K3_CASES = [  # name, B, H, KV, S, Sk, dh, causal, window
     ("llava-next-34b prefill", 1, 64, 8, 4928, 4928, 128, True, 0),
     # seamless-m4t's encoder: 4096 frames, causal within a window of 1024
     ("seamless-m4t encoder", 4, 16, 16, 4096, 4096, 64, True, 1024),
+    # hymba-1.5b's prefill: GQA 4:1 of dh 64 within a window of 1024
+    ("hymba-1.5b prefill", 4, 32, 8, 2048, 2048, 64, True, 1024),
     # two key tiles an item over many small items, K and V of one kv head
     # (L2-resident): the producer runs stages ahead of the consumers, so a
     # stage freed before its P V has read it is refilled under the read
     ("producer ahead, dh 128", 32, 64, 1, 128, 256, 128, False, 0),
     ("producer ahead, dh 64", 32, 64, 1, 128, 256, 64, False, 0),
 ]
-# the K3 cases timed against SDPA (the attention shapes of the five
+# the K3 cases timed against SDPA (the attention shapes of the six
 # prefills and the encoder the script runs); the first is the kernels line's
 K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill",
-            "llava-next-34b prefill", "seamless-m4t encoder")
+            "llava-next-34b prefill", "seamless-m4t encoder",
+            "hymba-1.5b prefill")
 # K4 against its plain version, element by element, for the output and the
 # final state: |got - want| <= atol + rtol * |want|. Both compute in
 # float32: K4 in chunks with every product split into three TF32 parts
@@ -363,6 +385,27 @@ SEAMLESS = dict(arch="seamless-m4t-large-v2", batch=4, frames=4096, gen=16)
 # over max |b|, set between sound runs and a K3 call that drops the window
 # (tools/plant_faults.py k3_call_drops_window; PERF.md §6)
 ENC_TOL = 0.05
+# hymba-1.5b whole (32 layers, bf16): batch 4, a prompt of 2048 over its
+# window of 1024 (the KV ring buffer wraps), 16 greedy tokens. The card
+# against the CPU runs the same width cut to 2 layers in float32, batch 1,
+# a prompt of 256, and one decode step
+HYMBA = dict(arch="hymba-1.5b", batch=4, prompt=2048, gen=16,
+             f32_layers=2, f32_batch=1, f32_prompt=256)
+# hymba-1.5b, relative to the largest value as LOGIT_TOL: decode_step after
+# prefill(S - 1) against prefill(S), each layer's Mamba conv and h within
+# HYBRID_STATE_TOL (sound runs read 0.047 and 0.051; a decode that starts
+# from a zeroed state, tools/plant_faults.py hybrid_mamba_state_not_carried,
+# reads 1.45 and 1.06); the K3 route against the einsum route in bf16
+# within HYBRID_ROUTE_TOL: the routes round at other places, and 32 layers
+# of attention beside the Mamba recurrence carry it further than llama's 28
+# (sound runs read 0.065, over LOGIT_TOL; the same weights in float32 read
+# 1.1e-5; K3 called without its window, tools/plant_faults.py
+# k3_call_drops_window, reads 0.948); the same weights in float32 at full
+# depth, routes and decode against prefill, and the card against the CPU
+# (logits, K/V, Mamba state), within HYBRID_F32_TOL (PERF.md §6)
+HYBRID_STATE_TOL = 0.1
+HYBRID_ROUTE_TOL = 0.15
+HYBRID_F32_TOL = 1e-3
 # the always-on service at the reference's service-load settings
 # (benchmarks/service_load.py:78-93, run_service_load at :111-131): the
 # sparse, greedy FedZero service over the "global" scenario, one day,
@@ -421,18 +464,19 @@ LAUNCH = dict(arch="smollm-360m", batch=8, seq=2048, steps=20, ckpt_every=10,
 LAUNCH_LOSS_TOL = 1e-4
 LAUNCH_PARAM_RHO = 0.05
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
-          "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec")
+          "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
+          "hybrid")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
 def smoke_config(arch):
     """``arch``'s full-width config at the depth this script runs it: the
     registry's, cut where its run (LLAMA, RWKV, MIXTRAL, KIMI, LLAVA,
-    SEAMLESS) names a depth."""
+    SEAMLESS, HYMBA) names a depth."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     run = {r["arch"]: r for r in (LLAMA, RWKV, MIXTRAL, KIMI, LLAVA,
-                                  SEAMLESS)}.get(arch, {})
+                                  SEAMLESS, HYMBA)}.get(arch, {})
     return dataclasses.replace(cfg,
                                n_layers=run.get("n_layers", cfg.n_layers))
 
@@ -920,21 +964,30 @@ def logits_agree(torch, a, b, rel_tol=LOGIT_TOL):
             "rows": int(a.shape[0]), "ok": diff <= tol and gap <= tol}
 
 
-def cache_agree(torch, a, b, slot):
+def cache_agree(torch, a, b, slot, rel_tol=CACHE_TOL):
     """K and V of cache ``a`` against ``b`` ([L, B, C, KV, dh]): max |a - b|
-    over max |b| at ``slot`` and over the slots before it, and whether the
-    lengths are equal."""
+    over max |b| at ``slot`` and over every other slot (those before it,
+    and in a ring buffer that has wrapped those after it), each within
+    ``rel_tol``, and whether the lengths are equal."""
     out = {"length_equal": bool(torch.equal(a.length, b.length))}
+    C = a.k.shape[2]
     for name in ("k", "v"):
         x, y = getattr(a, name), getattr(b, name)
-        for part, sl in (("new_slot", slice(slot, slot + 1)),
-                         ("old_slots", slice(0, slot))):
-            xs, ys = x[:, :, sl].float(), y[:, :, sl].float()
-            out[f"{name}_{part}"] = float((xs - ys).abs().max()
-                                          / ys.abs().max())
-            del xs, ys
+        for part, sls in (("new_slot", [slice(slot, slot + 1)]),
+                          ("old_slots", [slice(0, slot),
+                                         slice(slot + 1, C)])):
+            diff, scale = [], []
+            for sl in sls:
+                if sl.stop > sl.start:
+                    xs, ys = x[:, :, sl].float(), y[:, :, sl].float()
+                    diff.append((xs - ys).abs().max())
+                    scale.append(ys.abs().max())
+                    del xs, ys
+            # torch's max, not Python's, so that a NaN carries through
+            out[f"{name}_{part}"] = float(torch.stack(diff).max()
+                                          / torch.stack(scale).max())
     out["ok"] = out["length_equal"] and all(
-        v <= CACHE_TOL for k, v in out.items() if k.endswith("slot")
+        v <= rel_tol for k, v in out.items() if k.endswith("slot")
         or k.endswith("slots"))
     return out
 
@@ -1877,6 +1930,201 @@ def run_encdec(torch):
 
 
 # --------------------------------------------------------------------------
+# phase 17: hymba-1.5b (the hybrid family)
+
+
+def mamba_agree(torch, a, b, rel_tol=HYBRID_STATE_TOL):
+    """The Mamba conv and h of ``MambaState`` ``a`` against ``b`` ([L, ...]
+    stacked): per layer max |a - b| over max |b|, the worst layer's of
+    each, and of both (``worst``), which must be within ``rel_tol``."""
+    out = {}
+    for name in ("conv", "h"):
+        x, y = getattr(a, name).float(), getattr(b, name).float()
+        L = x.shape[0]
+        per = ((x - y).abs().reshape(L, -1).max(1).values
+               / y.abs().reshape(L, -1).max(1).values)
+        out[name] = float(per.max())
+        out[f"{name}_per_layer"] = per.tolist()
+    out["worst"] = float(torch.tensor([out["conv"], out["h"]]).max())
+    out["tol"] = rel_tol
+    out["ok"] = out["worst"] <= rel_tol
+    return out
+
+
+def hybrid_decode_vs_prefill(torch, model, prompts, cache_len,
+                             rel_tol=LOGIT_TOL):
+    """``decode_step`` after ``prefill(S - 1)`` against ``prefill(S)`` of a
+    hybrid model: the logits (the padded vocab's -1e30 columns sliced off),
+    the KV ring buffer at the new slot ``(S - 1) % C`` and at every other
+    slot, and each layer's Mamba conv and h; whether every logit and state
+    of both is finite."""
+    V = model.cfg.vocab
+    S = prompts.shape[1]
+    logits, full = model.prefill(prompts, cache_len)
+    _, cache = model.prefill(prompts[:, :-1], cache_len)
+    dec, cache = model.decode_step(cache, prompts[:, -1:])
+    C = cache[0].k.shape[2]
+    finite = all_finite(torch, logits, dec, *full[0][:2], *full[1],
+                        *cache[0][:2], *cache[1])
+    return {"logits": logits_agree(torch, dec[..., :V], logits[..., :V],
+                                   rel_tol),
+            "kv": cache_agree(torch, cache[0], full[0], (S - 1) % C),
+            "mamba": mamba_agree(torch, cache[1], full[1]),
+            "slot": (S - 1) % C, "slots": C, "finite": finite}
+
+
+def hybrid_f32(torch, cfg, prompts, cache_len):
+    """hymba-1.5b whole in float32, the same seed: the K3 route against
+    the einsum route, and decode after prefill(S - 1) against prefill(S),
+    the logits within HYBRID_F32_TOL (in float32 the routes compute the
+    same function up to summation order, where bf16 rounding parts them)."""
+    from repro_torch.launch import inference_demo as demo
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    V = cfg.vocab
+    _, model = demo.load_model(f32, False, 0, torch.device("cuda:0"))
+    k3, _ = model.prefill(prompts, cache_len)
+    model.use_kernels = False
+    ein, _ = model.prefill(prompts, cache_len)
+    model.use_kernels = True
+    out = {"k3_vs_einsum": logits_agree(torch, k3[..., :V], ein[..., :V],
+                                        HYBRID_F32_TOL),
+           "decode": hybrid_decode_vs_prefill(torch, model, prompts,
+                                              cache_len, HYBRID_F32_TOL)}
+    out["finite"] = all_finite(torch, k3, ein) and out["decode"]["finite"]
+    out["ok"] = (out["k3_vs_einsum"]["ok"] and out["finite"]
+                 and all(out["decode"][k]["ok"]
+                         for k in ("logits", "kv", "mamba")))
+    return out
+
+
+def hybrid_card_vs_cpu(torch, cfg):
+    """hymba-1.5b at full width, cut to HYMBA's f32_layers, in float32:
+    the same weights on the card (K3, the Mamba branch in torch ops) and
+    on the CPU (K3's plain version), a prefill of HYMBA's f32_prompt at
+    f32_batch and one decode step; the logits, the K/V and the Mamba state
+    of each, relative to the largest value, within HYBRID_F32_TOL."""
+    from repro_torch.launch import inference_demo as demo
+    from repro_torch.models import build_model
+
+    f32 = dataclasses.replace(cfg, n_layers=HYMBA["f32_layers"],
+                              dtype=torch.float32, param_dtype=torch.float32)
+    V, P = cfg.vocab, HYMBA["f32_prompt"]
+    _, card = demo.load_model(f32, False, 0, torch.device("cuda:0"))
+    cpu = build_model(f32, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    prompts = demo.make_prompts(f32, HYMBA["f32_batch"], P, 0,
+                                torch.device("cpu"))
+    lg, cg = card.prefill(prompts.cuda(), P + 1)
+    lh, ch = cpu.prefill(prompts, P + 1)
+    out = {"prefill": logits_agree(torch, lg[..., :V].cpu(), lh[..., :V],
+                                   HYBRID_F32_TOL)}
+    tok = torch.argmax(lh[:, -1, :V], -1)[:, None]
+    dg, cg = card.decode_step(cg, tok.cuda())
+    dh, ch = cpu.decode_step(ch, tok)
+    out["decode"] = logits_agree(torch, dg[..., :V].cpu(), dh[..., :V],
+                                 HYBRID_F32_TOL)
+    cg = tuple(type(t)(*(x.cpu() for x in t)) for t in cg)
+    out["kv"] = cache_agree(torch, cg[0], ch[0], P, HYBRID_F32_TOL)
+    out["mamba"] = mamba_agree(torch, cg[1], ch[1], HYBRID_F32_TOL)
+    out["finite"] = all_finite(torch, lg, dg, *cg[1], lh, dh, *ch[1])
+    out["ok"] = all(out[k]["ok"] for k in ("prefill", "decode", "kv",
+                                          "mamba")) and out["finite"]
+    return out
+
+
+def run_hybrid(torch):
+    """hymba-1.5b whole on the demo's ``load_model``, ``make_inputs`` and
+    ``generate``: K3 once per prefill layer within the window of 1024, the
+    Mamba branch in torch ops, the KV ring buffer wrapped (a prompt of 2048
+    over 1024 slots); the K3 route against the einsum route, decode after
+    prefill(S - 1) against prefill(S) (logits, KV slots, Mamba state),
+    and the card against the CPU in float32."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import inference_demo as demo
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    B, P, gen = HYMBA["batch"], HYMBA["prompt"], HYMBA["gen"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, model = demo.load_model(smoke_config(HYMBA["arch"]), False, 0,
+                                     dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        require(model.use_kernels, "the demo's model is not on K3")
+        L, V, C = cfg.n_layers, cfg.vocab, P + gen
+        prompts, _ = demo.make_inputs(cfg, B, P, 0, dev)
+        demo.generate(model, prompts[:, :256], 2)       # warm-up
+
+        # the main path: counts from zero, driven once, read right after
+        fa.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = demo.generate(model, prompts, gen)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tokens = out["tokens"].cpu().numpy()
+        finite = all_finite(torch, out["logits"])
+
+        # the same weights on the einsum route
+        t_k = host_ms(torch, lambda: model.prefill(prompts, C), 1)
+        model.use_kernels = False
+        t_e = host_ms(torch, lambda: model.prefill(prompts, C), 1)
+        ein, _ = model.prefill(prompts, C)
+        model.use_kernels = True
+        route = logits_agree(torch, out["logits"][..., :V], ein[..., :V],
+                             HYBRID_ROUTE_TOL)
+        finite_route = all_finite(torch, ein)
+        del ein
+        decode = hybrid_decode_vs_prefill(torch, model, prompts, C)
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        f32 = hybrid_f32(torch, cfg, prompts, C)
+        torch.cuda.empty_cache()
+        card_cpu = hybrid_card_vs_cpu(torch, cfg)
+    torch.cuda.empty_cache()
+    result = dict(
+        arch=cfg.name, n_layers=L, batch=B, prompt=P, gen=gen,
+        window=cfg.window, cache_slots=decode["slots"],
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_heads_padded,
+                                    cfg.n_kv_heads, cfg.n_kv_heads_padded],
+        d_head=cfg.d_head, d_ff=cfg.d_ff, ssm_state=cfg.ssm_state,
+        vocab=[cfg.vocab, cfg.vocab_padded], dtype=str(cfg.dtype),
+        params=n_params, init_s=init_s,
+        prefill_ms=1e3 * out["prefill_s"], decode_s=out["decode_s"],
+        decode_tok_per_s=(gen - 1) * B / out["decode_s"],
+        prefill_ms_k3_route=t_k, prefill_ms_einsum_route=t_e,
+        k3_launches=launches, max_memory_allocated=peak,
+        finite=[finite, finite_route, decode["finite"], f32["finite"],
+                card_cpu["finite"]],
+        k3_vs_einsum=route, decode_vs_prefill=decode["logits"],
+        cache_vs_prefill=decode["kv"], new_slot=decode["slot"],
+        mamba_vs_prefill=decode["mamba"],
+        f32_k3_vs_einsum=f32["k3_vs_einsum"],
+        f32_decode_vs_prefill={k: f32["decode"][k]
+                               for k in ("logits", "kv", "mamba")},
+        f32_card_vs_cpu=card_cpu,
+        sample=tokens[0].tolist(), s=time.perf_counter() - t0)
+    emit("hybrid", **result)
+    require(finite and finite_route and decode["finite"] and f32["finite"]
+            and card_cpu["finite"], "non-finite logits or state")
+    require(tokens.shape == (B, gen), f"generated {tokens.shape}")
+    require(launches == L,
+            f"K3 launched {launches} times in one prefill, want {L}")
+    require(route["ok"], f"K3 route != einsum route: {route}")
+    require(decode["logits"]["ok"], f"decode_step != prefill: {decode}")
+    require(decode["kv"]["ok"], f"decode_step's KV != prefill's: {decode}")
+    require(decode["mamba"]["ok"],
+            f"decode_step's Mamba state != prefill's: {decode['mamba']}")
+    require(f32["ok"], f"float32 routes or decode != prefill: {f32}")
+    require(card_cpu["ok"], f"card != CPU in float32: {card_cpu}")
+    return result
+
+
+# --------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -2735,6 +2983,8 @@ def main(argv=None) -> int:
         run_vlm(torch)
     if "encdec" in phases:
         run_encdec(torch)
+    if "hybrid" in phases:
+        run_hybrid(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]

@@ -22,16 +22,19 @@ nothing is compiled. Per record:
   the kernels have no meta implementation), and ``shapes_ok``: the step
   returned what it takes (new parameters and state of the same shapes
   and dtypes, a cache of the input's, logits [B, 1, vocab]; an
-  encoder-decoder's prefill, the cross-attention K/V of its frames). The rwkv6
-  train and prefill steps run the per-token recurrence, about 0.05 s a
-  token on meta tensors, so they run at ``SSM_PROBE_SEQ`` and their FLOPs
-  are extrapolated in the sequence length, in which they are linear
-  (``flops_method``).
+  encoder-decoder's prefill, the cross-attention K/V of its frames). The
+  train and prefill steps of a model with a recurrence over tokens loop
+  in Python on meta tensors (rwkv6's, about 0.05 s a token; the hybrid's
+  Mamba scan), so they run at the ``PROBE_SEQ`` of their family and their
+  FLOPs are the polynomial through those runs at the shape's sequence
+  length (``flops_method``): linear for rwkv6; for the hybrid, quadratic
+  (``a + b S + c S^2``: the projections and the scan's ``h . C`` are linear
+  in S, the einsum route's masked scores quadratic).
 
 The reference's XLA fields (HLO FLOPs and bytes per device, collectives,
 memory analysis, compile times) and its layer-count cost probes have no
-counterpart here. A family the port has not reached (the hybrid) is
-recorded as an error row, as the reference records a failure.
+counterpart here. A step that fails is recorded as an error row, as the
+reference records a failure.
 """
 from __future__ import annotations
 
@@ -40,12 +43,13 @@ import json
 import os
 import time
 import traceback
+from fractions import Fraction
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import NOT_PORTED, all_archs, get_config
+from repro_torch.configs import all_archs, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
@@ -53,8 +57,35 @@ from repro_torch.models import SHAPES, input_specs, params_spec
 from repro_torch.sharding import (STRATEGIES, cache_specs, port_param_specs,
                                   sharded_bytes)
 
-# sequence lengths of the two meta runs of an rwkv6 train or prefill step
-SSM_PROBE_SEQ = (16, 32)
+# family -> sequence lengths of the meta runs of its train or prefill
+# step, one more than the degree of its FLOPs in the sequence length
+PROBE_SEQ = {"ssm": (16, 32), "hybrid": (16, 32, 48)}
+PROBE_FIT = {2: "linear", 3: "quadratic"}
+
+
+def probe_family(cfg):
+    return "hybrid" if cfg.hybrid else cfg.family
+
+
+def through(points, S):
+    """The polynomial of degree ``len(points) - 1`` through ``points``
+    [(seq, flops), ...] at ``S``, exactly (Lagrange's form in
+    fractions)."""
+    total = Fraction(0)
+    for i, (si, fi) in enumerate(points):
+        term = Fraction(fi)
+        for j, (sj, _) in enumerate(points):
+            if j != i:
+                term *= Fraction(S - sj, si - sj)
+        total += term
+    return total
+
+
+def cut_specs(specs, kind, s):
+    """A train or prefill step's inputs cut to their first ``s`` tokens."""
+    cut = {k: v[:, :s] for k, v in
+           (specs["batch"] if kind == "train" else specs).items()}
+    return {"batch": cut} if kind == "train" else cut
 
 
 def _same(a, b) -> bool:
@@ -111,21 +142,18 @@ def step_record(cfg, shape_name: str) -> dict:
     ``step_flops``, ``flops_method``, ``shapes_ok`` and ``run_s``."""
     t = time.perf_counter()
     kind, specs = input_specs(cfg, shape_name)
-    if cfg.family == "ssm" and kind != "decode":
-        S = SHAPES[shape_name]["seq"]
-        runs = []
-        for s in SSM_PROBE_SEQ:
-            cut = {k: v[:, :s] for k, v in
-                   (specs["batch"] if kind == "train" else specs).items()}
-            runs.append(_run_step(cfg, shape_name, kind,
-                                  {"batch": cut} if kind == "train" else cut))
-        (f1, ok1, opt), (f2, ok2, _) = runs
-        s1, s2 = SSM_PROBE_SEQ
-        per_token, rem = divmod(f2 - f1, s2 - s1)
-        flops = f1 + per_token * (S - s1)
-        method = (f"linear in seq from meta runs at {s1} and {s2}"
-                  + ("" if rem == 0 else f" (remainder {rem})"))
-        ok = ok1 and ok2
+    seqs = PROBE_SEQ.get(probe_family(cfg))
+    if seqs and kind != "decode":
+        runs = [_run_step(cfg, shape_name, kind, cut_specs(specs, kind, s))
+                for s in seqs]
+        exact = through([(s, f) for s, (f, _, _) in zip(seqs, runs)],
+                        SHAPES[shape_name]["seq"])
+        flops, opt = round(exact), runs[0][2]
+        at = ", ".join(map(str, seqs[:-1])) + f" and {seqs[-1]}"
+        method = (f"{PROBE_FIT[len(seqs)]} in seq from meta runs at {at}"
+                  + ("" if exact.denominator == 1
+                     else f" (not integral: {float(exact)!r})"))
+        ok = all(r[1] for r in runs)
     else:
         flops, ok, opt = _run_step(cfg, shape_name, kind, specs)
         method = "meta run"
@@ -188,10 +216,7 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
 
-    # "all" is the reference's archs: those the port has not reached are
-    # error rows
-    archs = (all_archs() + list(NOT_PORTED) if args.arch == "all"
-             else args.arch.split(","))
+    archs = all_archs() if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     meshes = (["single_pod", "multi_pod"] if args.mesh == "both"
               else [args.mesh])

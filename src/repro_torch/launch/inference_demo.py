@@ -15,6 +15,8 @@ so the CPU runs only when asked for):
         --arch mixtral-8x22b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
         --arch llava-next-34b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.inference_demo \\
+        --arch hymba-1.5b --batch 4 --prompt-len 2048 --gen 16
 
 The weights are initialised on the device from
 ``torch.Generator(device).manual_seed(seed)``, the prompts from
@@ -25,10 +27,12 @@ after them, as the reference's demo draws them. As there, the cache is
 and the prompt) overfills: its decode steps then overwrite the oldest
 slots. An encoder-decoder arch exits, as the reference's demo does. The
 model runs on the hand-written
-kernels: prefill attention through K3 (dense, vlm and moe archs), the RWKV6
-scan through K4 (rwkv6-1.6b, whose prefill ignores the cache length, as
-the reference's does), and the expert products of the moe archs through
-K5 in prefill and decode; the rest of decode is plain torch ops, as in
+kernels: prefill attention through K3 (dense, vlm, moe and hybrid archs;
+hymba-1.5b's within its window of 1024, whose ring buffer a prompt longer
+than the window wraps), the RWKV6 scan through K4 (rwkv6-1.6b, whose
+prefill ignores the cache length, as the reference's does), and the
+expert products of the moe archs through K5 in prefill and decode; the
+rest, hymba's Mamba branch and decode among it, is plain torch ops, as in
 the reference. Full-width mixtral-8x22b (281 GB) does not fit one card;
 a caller that cuts its depth passes the cut config to :func:`load_model`.
 Everything runs under ``torch.inference_mode()``.

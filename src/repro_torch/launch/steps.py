@@ -4,10 +4,12 @@ The port of ``repro/launch/steps.py``. ``make_train_step`` trains on the
 reference's route (``use_kernels=False``): the reference's
 ``block_train`` reaches no Pallas kernel and none of its kernels has a
 backward, and the port's K3-K5 have none either (their wrappers refuse a
-gradient). Prefill and decode run on the kernels (K3 attention, K4 rwkv
-scan, K5 expert products); an encoder-decoder's prefill is its encoder
-(K3 over the encoder's window) and the cross attention's K/V. Every step
-runs on the model's device, ``cuda:0`` unless the caller names another.
+gradient); a hybrid's Mamba branch runs its per-token loop under
+autograd there. Prefill and decode run on the kernels (K3 attention, K4
+rwkv scan, K5 expert products; a hybrid's Mamba branch is torch ops); an
+encoder-decoder's prefill is its encoder (K3 over the encoder's window)
+and the cross attention's K/V. Every step runs on the model's device,
+``cuda:0`` unless the caller names another.
 """
 from __future__ import annotations
 
@@ -64,7 +66,9 @@ def make_prefill_step(cfg: ModelConfig, shape_name: str, device=None):
     ``prefill_step(tokens, cache_len=None, frontend_embeds=None)`` gives
     ``(last-position logits, cache)`` of ``tokens`` [B, S] (after a vlm's
     ``frontend_embeds`` [B, N, d]), the cache ``cache_len`` long (default:
-    the shape's ``seq``, as the reference's). An encoder-decoder's
+    the shape's ``seq``, as the reference's; a sliding window's ring
+    buffer holds at most its window; a hybrid's cache is (KVCache,
+    MambaState)). An encoder-decoder's
     ``prefill_step(frames)`` encodes ``frames`` [B, Se, d] and returns
     the decoder's cross-attention (k, v) of them (``precompute_enc_kv``)."""
     model = build_model(cfg, device=device)

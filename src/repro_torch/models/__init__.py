@@ -2,7 +2,9 @@
 prefill attention on the hand-written kernel K3; the moe family, with its
 expert products on the hand-written kernel K5 (and its attention on K3);
 the ssm family (rwkv6), with its prefill scan on the hand-written kernel
-K4; the encoder-decoder, with its windowed encoder on K3; and the models
+K4; the hybrid (hymba-1.5b), with its windowed attention on K3 beside a
+Mamba branch in torch ops; the encoder-decoder, with its windowed encoder
+on K3; and the models
 of the paper's own evaluation (LSTM, KWT-1, ConvNet), which the federated
 trainer trains."""
 from .api import (SHAPES, build_model, input_specs, params_spec,

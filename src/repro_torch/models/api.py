@@ -58,8 +58,7 @@ def build_model(cfg: ModelConfig, use_kernels: bool = True,
     on the hand-written kernels (K3 causal self attention, K4 rwkv scan,
     K5 expert products in prefill and decode); ``False`` is the
     reference's route. ``remat`` recomputes each block's activations in
-    the backward pass. Raises ``NotImplementedError`` for a family the
-    port has not reached."""
+    the backward pass."""
     cls = EncDecLM if cfg.encoder_layers > 0 else DecoderLM
     return cls(cfg, use_kernels=use_kernels, device=device, remat=remat)
 
@@ -74,7 +73,8 @@ def input_specs(cfg: ModelConfig, shape_name: str):
     ``{"batch": {"tokens", "labels"}}`` [B, S] (train), ``{"tokens"}``
     [B, S] (prefill), or ``{"cache", "tokens"}`` with the model's stacked
     cache ``seq`` long and tokens [B, 1] (decode, for
-    ``shape_for_long_context(cfg)``). A vlm's tokens are ``seq`` less its
+    ``shape_for_long_context(cfg)``; a hybrid's cache is the tuple
+    (KVCache of its window's slots, MambaState)). A vlm's tokens are ``seq`` less its
     N frontend positions, beside ``frontend_embeds`` [B, N, d] (train and
     prefill). The encoder-decoder's rows: ``{"batch": {"frontend_embeds"
     [B, S, d], "tokens", "labels" [B, S // DEC_RATIO]}}`` (train),

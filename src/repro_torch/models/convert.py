@@ -100,7 +100,10 @@ def params_from_reference(tree) -> dict:
     encoder-decoder), or ``moe.{router,w1,w3,w2}`` and, with shared
     experts, ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router stays
     float32), or ``tm.{mu, shift_lora_a, shift_lora_b, wr, wk, wv, wg, wo,
-    w0, w_lora_a, w_lora_b, u, ln_out}`` and ``cm.{mu_k, wk, wv}`` (ssm)."""
+    w0, w_lora_a, w_lora_b, u, ln_out}`` and ``cm.{mu_k, wk, wv}`` (ssm);
+    a hybrid block adds ``mamba.{in_proj, conv, w_bc, w_dt, dt_bias, logA,
+    D, out_proj}`` to the dense groups (``logA`` stays float32 in a bf16
+    model, as the reference builds it)."""
     def take(a, i):
         if isinstance(a, torch.Tensor):
             return a if i is None else a[i]

@@ -1,6 +1,7 @@
-"""RWKV6 ("Finch", arXiv:2404.05892) time mix and channel mix.
+"""RWKV6 ("Finch", arXiv:2404.05892) time mix and channel mix, and the
+Mamba-style selective SSM branch of the hybrid family (hymba-1.5b).
 
-A copy of the RWKV6 half of ``repro/models/ssm.py`` in PyTorch:
+A copy of ``repro/models/ssm.py`` in PyTorch. The RWKV6 half:
 data-dependent-decay linear attention whose per-head state is a
 (d_head × d_head) matrix. The parameters are the reference's, in its
 shapes (``mu`` [5, d], ``shift_lora_b`` [32, 5, d], ``u`` [H, dh], …), so a
@@ -11,9 +12,15 @@ per-head RMS norm; the recurrence itself is exact.
 ``rwkv_time_mix_train(..., use_kernel=True)`` runs the scan through K4
 (:mod:`repro_torch.kernels.rwkv_scan`); ``use_kernel=False`` is the
 reference's per-token recurrence, :func:`rwkv_recurrence` (K4's plain
-version). Both compute the same function. The Mamba half of the
-reference module belongs to the hybrid family, which the port has not
-reached.
+version). Both compute the same function.
+
+The Mamba half (``init_mamba_params``, ``_mamba_core``, ``MambaState``,
+``mamba_train``, ``mamba_decode``) has no kernel in the reference: its
+recurrence is a ``jax.lax.scan`` over tokens. Here it is torch ops
+(:func:`_selective_scan`): everything but the recurrence is computed for a
+chunk of ``SCAN_CHUNK`` tokens at once, and the loop over the chunk's
+tokens carries only the float32 state, one ``addcmul`` a token.
+``logA`` is float32 in every config, as the reference builds it.
 """
 from __future__ import annotations
 
@@ -162,3 +169,131 @@ def rwkv_channel_mix(params, x, x_prev):
     xk = x + (x_prev - x) * params["mu_k"]
     h = torch.square(F.relu(xk @ params["wk"]))
     return h @ params["wv"]
+
+
+# =====================================================================
+# Mamba-style selective SSM branch (Hymba hybrid)
+# =====================================================================
+
+CONV_K = 4
+# tokens of the scan's [B, T, d, n] float32 temporaries: 105 MB each at
+# hymba-1.5b's prefill (B 4, d 1600, n 16), where the whole sequence's
+# would be 0.84 GB
+SCAN_CHUNK = 256
+
+
+def init_mamba_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, n, dt, dev = cfg.d_model, cfg.ssm_state, cfg.param_dtype, gen.device
+    return {
+        "in_proj": dense_init(gen, d, (d, 2 * d), dt),   # x, z
+        "conv": dense_init(gen, CONV_K, (CONV_K, d), dt),
+        "w_bc": dense_init(gen, d, (d, 2 * n), dt),
+        "w_dt": dense_init(gen, d, (d,), dt),
+        "dt_bias": torch.zeros((d,), dtype=dt, device=dev),
+        # float32 in every config, as the reference's jnp.log(linspace)
+        "logA": torch.log(torch.linspace(1.0, float(n), n, device=dev))[None, :]
+        * torch.ones((d, 1), device=dev),
+        "D": torch.ones((d,), dtype=dt, device=dev),
+        "out_proj": dense_init(gen, d, (d, d), dt),
+    }
+
+
+def mamba_param_shapes(cfg: ModelConfig) -> dict:
+    """name -> (shape, dtype) of a block's ``mamba`` group."""
+    d, n, dt = cfg.d_model, cfg.ssm_state, cfg.param_dtype
+    return {"in_proj": ((d, 2 * d), dt), "conv": ((CONV_K, d), dt),
+            "w_bc": ((d, 2 * n), dt), "w_dt": ((d,), dt),
+            "dt_bias": ((d,), dt), "logA": ((d, n), torch.float32),
+            "D": ((d,), dt), "out_proj": ((d, d), dt)}
+
+
+def _selective_scan(x, dt, Bm, Cm, A, h):
+    """The reference's recurrence over tokens, in float32: per token t,
+    ``h = exp(dt_t A) * h + (dt_t x_t) B_t`` and ``y_t = h . C_t``.
+    x, dt [B,S,d], Bm, Cm [B,S,n], A [d,n], h [B,d,n]. Returns (y [B,S,d],
+    the final h).
+
+    Per chunk of ``SCAN_CHUNK`` tokens, ``exp(dt A)`` and ``(dt x) B`` are
+    computed at once, the loop takes one ``addcmul`` a token, and ``h . C``
+    is one contraction over the chunk's states. Where autograd records
+    (an input requires grad) each state is a new tensor; else each is
+    written over its own ``(dt x) B``."""
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, Bm, Cm, A, h))
+    ys = []
+    for c0 in range(0, x.shape[1], SCAN_CHUNK):
+        c = slice(c0, c0 + SCAN_CHUNK)
+        dA = torch.exp(dt[:, c, :, None] * A)                  # [B,T,d,n]
+        hs = (dt[:, c] * x[:, c])[..., None] * Bm[:, c, None, :]
+        if record:
+            steps = []
+            for t in range(hs.shape[1]):
+                h = torch.addcmul(hs[:, t], dA[:, t], h)
+                steps.append(h)
+            hs = torch.stack(steps, 1)
+        else:
+            for t in range(hs.shape[1]):
+                h = torch.addcmul(hs[:, t], dA[:, t], h, out=hs[:, t])
+        ys.append(torch.einsum("btdn,btn->btd", hs, Cm[:, c]))
+        del dA, hs
+    return torch.cat(ys, 1), h.clone()
+
+
+def _mamba_core(params, xz, conv_state, h0):
+    """xz: [B,S,2d]; conv_state: [B,CONV_K-1,d]; h0: [B,d,n] float32.
+    Returns (out [B,S,d], the new conv state, the final h)."""
+    d = params["D"].shape[0]
+    x, z = xz[..., :d], xz[..., d:]
+    # depthwise causal conv1d, summed as the reference's Python sum
+    xc = torch.cat([conv_state, x], dim=1)
+    S = x.shape[1]
+    conv_out = sum(xc[:, i:i + S] * params["conv"][i] for i in range(CONV_K))
+    x = F.silu(conv_out)
+    new_conv_state = xc[:, -(CONV_K - 1):].clone()
+
+    bc = x @ params["w_bc"]
+    n = bc.shape[-1] // 2
+    Bm, Cm = bc[..., :n], bc[..., n:]                       # [B,S,n]
+    # F.softplus is x itself above 20; the reference's logaddexp(x, 0)
+    # differs there by log1p(exp(-x)) < 2.1e-9
+    dt = F.softplus(x * params["w_dt"] + params["dt_bias"])  # [B,S,d]
+    A = -torch.exp(params["logA"].float())                   # [d,n]
+    y, h = _selective_scan(x.float(), dt.float(), Bm.float(), Cm.float(), A,
+                           h0)
+    y = y.to(x.dtype)
+    y = y + x * params["D"]
+    return (y * F.silu(z)) @ params["out_proj"], new_conv_state, h
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # [B, CONV_K-1, d]
+    h: torch.Tensor     # [B, d, n] float32
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device=None) -> MambaState:
+    return MambaState(
+        conv=torch.zeros((batch, CONV_K - 1, cfg.d_model), dtype=cfg.dtype,
+                         device=device),
+        h=torch.zeros((batch, cfg.d_model, cfg.ssm_state),
+                      dtype=torch.float32, device=device))
+
+
+def mamba_scan(params, x, cfg: ModelConfig):
+    """The branch over a full sequence from a zero state: (y, the
+    ``MambaState`` after the last token), as the reference's hybrid
+    prefill computes them."""
+    st = init_mamba_state(cfg, x.shape[0], x.device)
+    y, conv, h = _mamba_core(params, x @ params["in_proj"], st.conv, st.h)
+    return y, MambaState(conv=conv, h=h)
+
+
+def mamba_train(params, x, cfg: ModelConfig):
+    return mamba_scan(params, x, cfg)[0]
+
+
+def mamba_decode(params, x, state: MambaState, cfg: ModelConfig):
+    """x: [B, 1, d] one token. Returns (y, the new state); ``state`` is
+    left as it was."""
+    y, conv, h = _mamba_core(params, x @ params["in_proj"], state.conv,
+                             state.h)
+    return y, MambaState(conv=conv, h=h)

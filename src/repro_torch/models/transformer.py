@@ -1,11 +1,12 @@
 """Decoder-only / encoder-decoder transformer assembly: the dense, vlm,
-moe and ssm (rwkv6) families, and the encoder-decoder.
+moe, ssm (rwkv6) and hybrid families, and the encoder-decoder.
 
-A copy of the dense, vlm, moe, ssm and encdec parts of
-``repro/models/transformer.py`` in PyTorch: pre-norm residual blocks of
-GQA attention and a SwiGLU FFN (dense, vlm) or a top-k expert FFN (moe,
-:mod:`.moe`), or of RWKV6 time mix and channel mix (ssm,
-attention-free). A vlm model puts frontend embeddings (the stubbed vision
+A copy of ``repro/models/transformer.py`` in PyTorch: pre-norm residual
+blocks of GQA attention and a SwiGLU FFN (dense, vlm) or a top-k expert
+FFN (moe, :mod:`.moe`), of RWKV6 time mix and channel mix (ssm,
+attention-free), or of parallel GQA attention and Mamba heads, averaged,
+and a SwiGLU FFN (hybrid, Hymba-style; the Mamba branch is
+:mod:`.ssm`'s). A vlm model puts frontend embeddings (the stubbed vision
 tower's patch embeddings) before its token embeddings. ``EncDecLM`` is a
 local-attention encoder over frontend embeddings (audio frames) and a
 causal decoder whose blocks add cross attention to the encoder's output.
@@ -24,9 +25,8 @@ expert einsums). Both compute the same function. The kernels have no
 backward, so training takes the reference's route
 (``launch.steps.make_train_step``). ``remat=True`` recomputes each
 block's activations in the backward pass, as the reference's
-``jax.checkpoint`` of its scanned layer body does. The hybrid family
-raises ``NotImplementedError``. The models' weights live on ``cuda:0``
-unless the caller names another device.
+``jax.checkpoint`` of its scanned layer body does. The models' weights
+live on ``cuda:0`` unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -44,23 +44,6 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (ModelConfig, cross_entropy_loss, dense_init, embed_init,
                      rmsnorm, swiglu, vocab_mask)
-
-# families the port has not reached -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "hybrid": "item 5c (the hybrid family, hymba-1.5b)",
-}
-
-
-def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for a family the port has not reached:
-    the hybrid (parallel attention and Mamba heads)."""
-    family = "hybrid" if cfg.hybrid else cfg.family
-    if family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {family} family is not ported yet; see "
-            f"ROADMAP.md, modules still to port, "
-            f"{NOT_PORTED[family]}")
-
 
 # ---------------------------------------------------------------------------
 # per-layer parameters
@@ -88,6 +71,8 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig,
         p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
         return p
     p["attn"] = attn.init_attn_params(gen, cfg)
+    if cfg.hybrid:
+        p["mamba"] = ssm_mod.init_mamba_params(gen, cfg)
     if cross_attention:
         p["xattn"] = attn.init_attn_params(gen, cfg)
         p["ln_x"] = ones.clone()
@@ -111,12 +96,14 @@ def _attn_params(cfg: ModelConfig, device) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One dense or moe block's weights: ``ln1``, ``ln2``,
+    """One dense, moe or hybrid block's weights: ``ln1``, ``ln2``,
     ``attn.{wq,wk,wv,wo}``, and ``ffn.{w1,w3,w2}`` (dense) or
     ``moe.{router,w1,w3,w2}`` with, given shared experts,
     ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router float32).
-    A decoder block of an encoder-decoder (``cross_attention``) adds
-    ``xattn.{wq,wk,wv,wo}`` and ``ln_x``."""
+    A hybrid block adds ``mamba.{in_proj, conv, w_bc, w_dt, dt_bias, logA,
+    D, out_proj}`` (``logA`` float32). A decoder block of an
+    encoder-decoder (``cross_attention``) adds ``xattn.{wq,wk,wv,wo}`` and
+    ``ln_x``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  cross_attention: bool = False):
@@ -125,6 +112,10 @@ class Block(nn.Module):
         self.ln1 = _empty((d,), dt, device)
         self.ln2 = _empty((d,), dt, device)
         self.attn = _attn_params(cfg, device)
+        if cfg.hybrid:
+            self.mamba = nn.ParameterDict({
+                name: _empty(shape, t, device)
+                for name, (shape, t) in ssm_mod.mamba_param_shapes(cfg).items()})
         if cross_attention:
             self.xattn = _attn_params(cfg, device)
             self.ln_x = _empty((d,), dt, device)
@@ -176,7 +167,9 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
                 use_kernels=False):
     """One residual block over the full sequence. Returns (x, aux, kv).
     ``enc_out`` (a decoder block of an encoder-decoder) adds cross
-    attention to it after the self attention."""
+    attention to it after the self attention. A hybrid block averages the
+    attention and the Mamba branch; its ``kv`` is ((k, v), the
+    ``MambaState`` after the last token)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     kv = None
@@ -194,6 +187,11 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
     if return_kv:
         # re-derive K/V for the cache, as the reference does
         kv = _project_kv(p.attn, h, cfg)
+    if cfg.hybrid:
+        ym, m_state = ssm_mod.mamba_scan(p.mamba, h, cfg)
+        y = 0.5 * (y + ym)
+        if return_kv:
+            kv = (kv, m_state)
     x = x + y
     if enc_out is not None:
         hx = rmsnorm(x, p.ln_x, cfg.norm_eps)
@@ -265,8 +263,10 @@ def remat(body, blk, x, *extra):
 
 def block_decode(p, x, cache, cfg: ModelConfig, enc_kv=None,
                  use_kernels=False):
-    """x: [B,1,d]; cache is the layer's KVCache (updated in place) or, for
-    ssm, its RWKVState (left as it was; the new state is returned).
+    """x: [B,1,d]; cache is the layer's KVCache (updated in place), for
+    ssm its RWKVState (left as it was; the new state is returned), for
+    hybrid (KVCache, MambaState) (the KV cache updated in place, the new
+    MambaState returned).
     ``enc_kv`` (a decoder block of an encoder-decoder) is the layer's
     cross-attention (k, v) of the encoder's output. ``use_kernels`` sends
     a moe block's expert products through K5."""
@@ -277,8 +277,15 @@ def block_decode(p, x, cache, cfg: ModelConfig, enc_kv=None,
         h2 = rmsnorm(x, p.ln2, cfg.norm_eps)
         y2 = ssm_mod.rwkv_channel_mix(p.cm, h2, st.shift_cm[:, None, :])
         return x + y2, st._replace(shift_cm=h2[:, 0])
-    y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
-    x = x + y
+    if cfg.hybrid:
+        kv_cache, m_state = cache
+        ya, kv_cache = attn.attend_decode(p.attn, h, kv_cache, cfg)
+        ym, m_state = ssm_mod.mamba_decode(p.mamba, h, m_state, cfg)
+        x = x + 0.5 * (ya + ym)
+        new_cache = (kv_cache, m_state)
+    else:
+        y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
+        x = x + y
     if enc_kv is not None:
         hx = rmsnorm(x, p.ln_x, cfg.norm_eps)
         x = x + _cross_attend_cached(p.xattn, hx, enc_kv, cfg)
@@ -313,7 +320,7 @@ def _fill_block(gen: torch.Generator, cfg: ModelConfig, blk: nn.Module,
     """Fill ``blk``'s weights from ``gen`` (``init_block_params``, then a
     moe block's experts)."""
     for key, val in init_block_params(gen, cfg, cross_attention).items():
-        if isinstance(val, dict):  # a group: attn, xattn, ffn, tm, cm
+        if isinstance(val, dict):  # a group: attn, xattn, ffn, mamba, tm, cm
             for name, t in val.items():
                 getattr(blk, key)[name].copy_(t)
         else:
@@ -330,31 +337,48 @@ def _head_logits(x, head, cfg: ModelConfig):
     return logits
 
 
+def _stacked(one, n_layers: int):
+    """A layer's cache or state (a named tuple of tensors), each tensor
+    repeated over ``n_layers`` as the reference's scanned cache stacks
+    them: [L, ...]."""
+    return type(one)(*(t.expand(n_layers, *t.shape).clone() for t in one))
+
+
 def _stacked_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
                       n_layers: int) -> attn.KVCache:
-    one = attn.init_cache(cfg, batch, cache_len, cfg.dtype, device)
-    return attn.KVCache(*(t.expand(n_layers, *t.shape).clone() for t in one))
+    return _stacked(attn.init_cache(cfg, batch, cache_len, cfg.dtype, device),
+                    n_layers)
 
 
-def _decode_layers(blocks, x, cache: attn.KVCache, cfg: ModelConfig,
-                   enc_kv=None, use_kernels=False):
+def _decode_layers(blocks, x, cache, cfg: ModelConfig, enc_kv=None,
+                   use_kernels=False):
     """``block_decode`` of each block on its layer of the stacked KV
     cache (and of ``enc_kv`` (k, v) [L, ...]); returns x and the cache
-    with each layer's new length."""
+    with each layer's new length. A hybrid's cache is (KVCache,
+    MambaState), each stacked; each layer's new Mamba state is written
+    over its old one."""
+    kv, m = cache if cfg.hybrid else (cache, None)
     lengths = []
     for i, blk in enumerate(blocks):
-        layer = attn.KVCache(cache.k[i], cache.v[i], cache.length[i])
+        layer = attn.KVCache(kv.k[i], kv.v[i], kv.length[i])
+        if cfg.hybrid:
+            layer = (layer, ssm_mod.MambaState(*(t[i] for t in m)))
         x, layer = block_decode(
             blk, x, layer, cfg,
             enc_kv=None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i]),
             use_kernels=use_kernels)
+        if cfg.hybrid:
+            layer, new = layer
+            for old, t in zip(m, new):
+                old[i].copy_(t)
         lengths.append(layer.length)
-    return x, attn.KVCache(cache.k, cache.v, torch.stack(lengths))
+    kv = attn.KVCache(kv.k, kv.v, torch.stack(lengths))
+    return x, (kv, m) if cfg.hybrid else kv
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM of the dense, the vlm, the moe or the ssm (rwkv6)
-    family.
+    """Decoder-only LM of the dense, the vlm, the moe, the ssm (rwkv6) or
+    the hybrid family.
 
     The weights are allocated on ``device`` uninitialised (``None``:
     ``cuda:0``, which raises ``RuntimeError`` on a host without CUDA; the
@@ -364,9 +388,14 @@ class DecoderLM(nn.Module):
     :func:`repro_torch.models.convert.params_from_reference`. The cache of
     :meth:`init_cache`/:meth:`prefill` stacks the layers as the
     reference's scanned cache does: a KV cache k, v [L, B, C, KV, dh],
-    length [L] (dense), or an ``RWKVState`` shift, shift_cm [L, B, d],
+    length [L] (dense), an ``RWKVState`` shift, shift_cm [L, B, d],
     S [L, B, H, dh, dh] float32 (ssm, whose prefill ignores ``cache_len``,
-    as the reference's does). :meth:`decode_step` updates either in place.
+    as the reference's does), or (KV cache, ``MambaState`` conv
+    [L, B, CONV_K - 1, d], h [L, B, d, n] float32) (hybrid).
+    :meth:`decode_step` updates each in place. A sliding-window cache is a
+    ring buffer of ``min(cache_len, window)`` slots, token t at slot
+    ``t % C``: a prefill longer than the window rolls its last ``C`` K/V
+    into place.
 
     A vlm's ``frontend_embeds`` [B, N, d] (:meth:`loss`, :meth:`logits_fn`,
     :meth:`prefill`) go before the token embeddings; the loss and the
@@ -386,7 +415,6 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
                  device=None, remat: bool = False):
         super().__init__()
-        check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.use_kernels = use_kernels
@@ -469,17 +497,21 @@ class DecoderLM(nn.Module):
 
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int):
-        if self.cfg.family == "ssm":
-            one = ssm_mod.init_rwkv_state(self.cfg, batch, self.device)
-            L = self.cfg.n_layers
-            return type(one)(*(t.expand(L, *t.shape).clone() for t in one))
-        return _stacked_kv_cache(self.cfg, batch, cache_len, self.device,
-                                 self.cfg.n_layers)
+        cfg, L = self.cfg, self.cfg.n_layers
+        if cfg.family == "ssm":
+            return _stacked(ssm_mod.init_rwkv_state(cfg, batch, self.device),
+                            L)
+        kv = _stacked_kv_cache(cfg, batch, cache_len, self.device, L)
+        if cfg.hybrid:
+            return kv, _stacked(
+                ssm_mod.init_mamba_state(cfg, batch, self.device), L)
+        return kv
 
     def decode_step(self, cache, tokens):
         """tokens: [B, 1] -> (logits [B,1,V], cache). The cache's tensors
         are updated in place (a KV cache's k/v, every tensor of an
-        ``RWKVState``); a returned KV cache has ``length + 1``."""
+        ``RWKVState`` or a ``MambaState``); a returned KV cache has
+        ``length + 1``."""
         x = self._embed(tokens)
         if self.cfg.family == "ssm":
             for i, blk in enumerate(self.blocks):
@@ -496,7 +528,8 @@ class DecoderLM(nn.Module):
 
     def prefill(self, tokens, cache_len: int, frontend_embeds=None):
         """Full forward returning (last-position logits, populated cache).
-        A vlm's ``frontend_embeds`` [B, N, d] go before the tokens."""
+        A vlm's ``frontend_embeds`` [B, N, d] go before the tokens. A
+        hybrid's cache is (KV cache, the stacked ``MambaState``)."""
         cfg = self.cfg
         x = self._embed(tokens, frontend_embeds)
         S = x.shape[1]
@@ -509,12 +542,15 @@ class DecoderLM(nn.Module):
             x = rmsnorm(x, self.final_norm, cfg.norm_eps)
             return self._logits(x[:, -1:]), ssm_mod.RWKVState(
                 *(torch.stack(t) for t in zip(*states)))
-        ks, vs = [], []
+        ks, vs, ms = [], [], []
         for blk in self.blocks:
-            x, _, (k, v) = block_train(blk, x, cfg, return_kv=True,
-                                       use_kernels=self.use_kernels)
-            ks.append(k)
-            vs.append(v)
+            x, _, kv = block_train(blk, x, cfg, return_kv=True,
+                                   use_kernels=self.use_kernels)
+            if cfg.hybrid:
+                kv, m = kv
+                ms.append(m)
+            ks.append(kv[0])
+            vs.append(kv[1])
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         ks_, vs_ = torch.stack(ks), torch.stack(vs)
         del ks, vs
@@ -533,8 +569,11 @@ class DecoderLM(nn.Module):
             vs_ = vs_.to(cfg.cache_dtype)
         length = torch.full((cfg.n_layers,), S, dtype=torch.int32,
                             device=x.device)
-        return self._logits(x[:, -1:]), attn.KVCache(k=ks_, v=vs_,
-                                                     length=length)
+        cache = attn.KVCache(k=ks_, v=vs_, length=length)
+        if cfg.hybrid:
+            cache = (cache, ssm_mod.MambaState(
+                *(torch.stack(t) for t in zip(*ms))))
+        return self._logits(x[:, -1:]), cache
 
 
 class EncDecLM(nn.Module):
@@ -558,7 +597,6 @@ class EncDecLM(nn.Module):
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True,
                  device=None, remat: bool = False):
         super().__init__()
-        check_ported(cfg)
         if cfg.encoder_layers <= 0:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs "
                              "encoder_layers > 0")

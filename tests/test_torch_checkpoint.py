@@ -5,7 +5,8 @@ package's, on the CPU.
   bfloat16 (inf, nan, -0 among them), float32 and an int32 step round
   trips bit for bit, with its extra state; the latest step is found.
 * Reference -> port: ``repro.checkpoint.save_checkpoint`` of a reduced
-  smollm-360m, mixtral-8x22b, rwkv6-1.6b or seamless-m4t-large-v2 (an
+  smollm-360m, mixtral-8x22b, rwkv6-1.6b, hymba-1.5b (a hybrid: each
+  block's ``mamba`` group) or seamless-m4t-large-v2 (an
   ``EncDecLM``: ``enc_blocks``, ``enc_norm``, ``dec_blocks`` with
   ``xattn`` and ``ln_x``) ``(params, adamw state)`` (and smollm in
   bfloat16) loads into the port's reference-layout tree
@@ -41,7 +42,7 @@ from repro_torch.models.convert import (model_config_from_reference,
 from repro_torch.optim import adamw
 
 Pair = collections.namedtuple("Pair", "a b")
-ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b",
+ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b", "hymba-1.5b",
          "seamless-m4t-large-v2"]
 
 

@@ -175,6 +175,7 @@ def test_each_source_has_its_own_hash_keyed_library(tmp_path):
     (1, 4, 2, 70, 300, 32, True, 64),       # dh 32, S < Sk, window
     (1, 64, 8, 704, 704, 128, True, 0),     # llava-next-34b grouping, ragged
     (2, 16, 16, 1100, 1100, 64, True, 256),  # seamless's encoder, windowed
+    (1, 32, 8, 1100, 1100, 64, True, 256),  # hymba-1.5b grouping 4:1, windowed
 ])
 def test_kernel_matches_plain_on_card(B, H, KV, S, Sk, dh, causal, window,
                                       dtype):

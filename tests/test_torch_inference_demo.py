@@ -1,11 +1,13 @@
 """The port's LLM inference demo (``repro_torch.launch.inference_demo``) on
 the CPU: its CLI with ``--device cpu`` on reduced smollm-360m, reduced
-rwkv6-1.6b, reduced mixtral-8x22b and reduced llava-next-34b, its default
+rwkv6-1.6b, reduced mixtral-8x22b, reduced llava-next-34b and reduced
+hymba-1.5b (a prompt longer than its window of 64), its default
 device (the card) refused on a host without CUDA, an encoder-decoder
 refused as the reference's demo refuses it, and its prefill + greedy
 decode against the JAX package's demo loop on the same weights (smollm,
-and llava with the frontend embeddings drawn as the reference's demo draws
-them and its short cache): the same greedy tokens, and the prefill logits
+llava with the frontend embeddings drawn as the reference's demo draws
+them and its short cache, and hymba with a prompt that wraps the KV ring
+buffer): the same greedy tokens, and the prefill logits
 within atol = rtol = 1e-5 (float32; the two sides differ only in
 summation order).
 """
@@ -70,6 +72,17 @@ def test_cli_runs_llava_on_cpu(capsys):
     assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
 
 
+def test_cli_runs_hymba_on_cpu(capsys):
+    """The hybrid: a prompt of 80 over the reduced window of 64."""
+    demo.main(["--arch", "hymba-1.5b", "--reduced", "--batch", "3",
+               "--prompt-len", "80", "--gen", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("prefill 3×80 in ")
+    assert lines[1].startswith("decoded 4 steps × 3 seqs in ")
+    sample = [int(t) for t in lines[2][len("sample: ["):-1].split()]
+    assert len(sample) == 5 and all(0 <= t < 512 for t in sample)
+
+
 def test_cli_refuses_an_encoder_decoder():
     with pytest.raises(SystemExit, match="decoder-only"):
         demo.main(["--arch", "seamless-m4t-large-v2", "--reduced",
@@ -83,8 +96,18 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_generate_matches_reference_demo_loop():
-    B, P, gen = 2, 24, 6
-    ref_cfg = ref_get_config("smollm-360m", reduced=True)
+    _generate_matches_reference_demo_loop("smollm-360m", 24)
+
+
+def test_hybrid_generate_matches_reference_demo_loop():
+    """hymba's prompt of 80 wraps its window of 64: the decode steps write
+    the KV ring buffer from slot 80 % 64 and carry the Mamba state."""
+    _generate_matches_reference_demo_loop("hymba-1.5b", 80)
+
+
+def _generate_matches_reference_demo_loop(arch, P):
+    B, gen = 2, 6
+    ref_cfg = ref_get_config(arch, reduced=True)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     prompts = np.random.default_rng(0).integers(0, ref_cfg.vocab, (B, P))

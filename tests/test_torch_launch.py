@@ -2,7 +2,8 @@
 the train driver, the dry run) against the JAX package's, on the CPU.
 
 * ``make_train_step`` on the reduced float32 smollm-360m (dense),
-  mixtral-8x22b (moe) and rwkv6-1.6b (ssm) with the reference's weights
+  mixtral-8x22b (moe), rwkv6-1.6b (ssm) and hymba-1.5b (hybrid: the Mamba
+  branch's per-token loop under autograd) with the reference's weights
   carried across: the loss and every gradient within ``TOL`` (atol = rtol
   = 1e-5) of ``jax.value_and_grad(model.loss)`` (rwkv6's gradients
   within ``GRAD_TOL``, 1e-4 of the largest), three AdamW steps against the
@@ -22,8 +23,9 @@ the train driver, the dry run) against the JAX package's, on the CPU.
   ``state_bytes_per_device`` equal the reference's (computed here from
   ``repro.sharding``, ``repro.models.params_spec`` and
   ``make_abstract_mesh``; ``repro.launch.dryrun`` is not imported: it sets
-  ``XLA_FLAGS`` when imported); a meta run proves the steps' shapes; an
-  unported family is an error row.
+  ``XLA_FLAGS`` when imported); a meta run proves the steps' shapes; the
+  hybrid's train and prefill FLOPs are the quadratic through three short
+  meta runs, which a fourth run at another length equals exactly.
 * The encoder-decoder's and the vlm's step factories against the
   reference's; the dry run's rows of both families.
 * The batched inference example (its vlm and encoder-decoder branches
@@ -57,7 +59,7 @@ from repro.sharding.specs import _axis_size as ref_axis_size
 from repro_torch.configs import all_archs, get_config
 from repro_torch.launch import dryrun, steps, train
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import SHAPES, EncDecLM
+from repro_torch.models import SHAPES, DecoderLM, EncDecLM, input_specs
 from repro_torch.models.convert import (model_config_from_reference,
                                         params_from_reference)
 from repro_torch.optim import Optimizer, adamw
@@ -70,10 +72,11 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 # gradients are ill-conditioned (a per-head norm over small outputs): port
 # and reference differ by 6.8e-5 of the largest, each ~3e-5 off a run in
 # float64 outside the scan
-GRAD_TOL = {"smollm-360m": 1e-5, "mixtral-8x22b": 1e-5, "rwkv6-1.6b": 1e-4}
+GRAD_TOL = {"smollm-360m": 1e-5, "mixtral-8x22b": 1e-5, "rwkv6-1.6b": 1e-4,
+            "hymba-1.5b": 1e-5}
 # three AdamW steps: |p_port - p_ref| / |p_ref - p_0| per tensor
 STEP_RHO = 0.05
-ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b"]
+ARCHS = ["smollm-360m", "mixtral-8x22b", "rwkv6-1.6b", "hymba-1.5b"]
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # an "optimizer" whose update returns the gradients as the new parameters
 GRADS = Optimizer(init=lambda params: {}, update=lambda g, s, p: (g, s),
@@ -292,14 +295,28 @@ def test_prefill_and_decode_factories_match_reference(arch):
 
 
 def test_encdec_prefill_step_raises():
-    """The step factories raise for the family the port has not reached
-    (the hybrid) and build an encoder-decoder's steps (an ``EncDecLM``)."""
+    """The step factories build the hybrid's steps (a ``DecoderLM`` with
+    the Mamba branch, on the kernels, whose decode step takes the
+    (KVCache, MambaState) cache) and an encoder-decoder's steps (an
+    ``EncDecLM``)."""
     hybrid = model_config_from_reference(ref_get_config("hymba-1.5b",
                                                         reduced=True))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_prefill_step(hybrid, "prefill_32k", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_decode_step(hybrid, "decode_32k", device="cpu")
+    model, prefill = steps.make_prefill_step(hybrid, "prefill_32k",
+                                             device="cpu")
+    dec_model, decode = steps.make_decode_step(hybrid, "decode_32k",
+                                               device="cpu")
+    for m in (model, dec_model):
+        assert isinstance(m, DecoderLM) and m.use_kernels
+        assert "blocks.0.mamba.logA" in dict(m.named_parameters())
+    gen = torch.Generator().manual_seed(0)
+    model.init(gen)
+    dec_model.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, hybrid.vocab, (2, 80), generator=gen)
+    logits, (kv, m) = prefill(tokens)
+    assert kv.k.shape[2] == hybrid.window and m.h.dtype == torch.float32
+    logits, (kv, m) = decode((kv, m), logits[:, -1].argmax(-1)[:, None])
+    assert logits.shape == (2, 1, hybrid.vocab_padded)
+    assert kv.length.tolist() == [81] * hybrid.n_layers
     encdec = get_config("seamless-m4t-large-v2", reduced=True)
     for make, shape in ((steps.make_prefill_step, "prefill_32k"),
                         (steps.make_decode_step, "decode_32k")):
@@ -504,15 +521,39 @@ def test_dryrun_records_and_error_rows(tmp_path):
     dec = dryrun.dryrun_one("mixtral-8x22b", "long_500k", "single_pod",
                             verbose=False)
     assert dec["shapes_ok"] and dec["kind"] == "decode"
+    # the hybrid, the last family ported: no error rows; its prefill's
+    # FLOPs from three meta runs, quadratic in seq
     out = str(tmp_path / "dry.json")
     assert dryrun.main(["--arch", "hymba-1.5b,smollm-360m", "--shape",
-                        "decode_32k", "--mesh", "single_pod", "--out",
-                        out]) == 1
+                        "prefill_32k,decode_32k", "--mesh", "single_pod",
+                        "--out", out]) == 0
     with open(out) as f:
         rows = json.load(f)
-    assert [r["arch"] for r in rows] == ["hymba-1.5b", "smollm-360m"]
-    assert "item 5" in rows[0]["error"] and "error" not in rows[1]
-    assert set(dryrun.NOT_PORTED) | set(all_archs()) == set(ref_all_archs())
+    assert [(r["arch"], r["shape"]) for r in rows] == [
+        ("hymba-1.5b", "prefill_32k"), ("hymba-1.5b", "decode_32k"),
+        ("smollm-360m", "prefill_32k"), ("smollm-360m", "decode_32k")]
+    assert all("error" not in r and r["shapes_ok"] for r in rows)
+    assert rows[0]["flops_method"] == (
+        "quadratic in seq from meta runs at 16, 32 and 48")
+    assert rows[1]["flops_method"] == "meta run"
+    assert all_archs() == list(dryrun.all_archs())
+    assert set(all_archs()) == set(ref_all_archs())
+
+
+def test_dryrun_hybrid_fit_equals_a_direct_run():
+    """The quadratic through the hybrid prefill's three meta runs (16, 32
+    and 48 tokens) equals a direct meta run at a fourth length, 64, exactly;
+    the rwkv6 line through its two runs does the same at 48."""
+    for arch, seqs in (("hymba-1.5b", (16, 32, 48)), ("rwkv6-1.6b",
+                                                       (16, 32))):
+        cfg = get_config(arch)
+        assert dryrun.PROBE_SEQ[dryrun.probe_family(cfg)] == seqs
+        kind, specs = input_specs(cfg, "prefill_32k")
+        runs = [(s, dryrun._run_step(cfg, "prefill_32k", kind,
+                                     dryrun.cut_specs(specs, kind, s))[0])
+                for s in seqs + (seqs[-1] + 16,)]
+        fit = dryrun.through(runs[:-1], runs[-1][0])
+        assert fit.denominator == 1 and fit == runs[-1][1], (arch, runs)
 
 
 def test_batched_inference_example_runs(capsys):
@@ -525,7 +566,7 @@ def test_batched_inference_example_runs(capsys):
                         "--gen", "4", "--device", "cpu"])
         assert gen.shape == (2, 4)
     out = capsys.readouterr().out
-    assert out.count("decoded 4 tokens × 2 seqs") == 3
+    assert out.count("decoded 4 tokens × 2 seqs") == len(ARCHS)
 
 
 def test_batched_inference_example_runs_vlm_and_encdec(capsys):

@@ -20,11 +20,12 @@ from a seed with NumPy, so both sides compute on the same numbers:
 * the configs, ``SHAPES`` and ``shape_for_long_context`` field for field,
   the converter (a bfloat16 array crosses bit for bit), every parameter's
   shape and dtype at full width against the reference's (the moe router
-  stays float32 in a bf16 model; llava's and seamless's too), the default
-  device (the card, which raises on a host without CUDA), and
-  ``NotImplementedError`` for the family the port has not reached, the
-  hybrid (the rwkv6 model has its own file, tests/test_torch_ssm.py; the
-  vlm and encoder-decoder models theirs, tests/test_torch_vlm_encdec.py).
+  stays float32 in a bf16 model, as does the hybrid's ``logA``; llava's,
+  seamless's and hymba's too), the default device (the card, which raises
+  on a host without CUDA), and the registry, which holds the reference's
+  ten archs (the rwkv6 model has its own file, tests/test_torch_ssm.py;
+  the vlm and encoder-decoder models theirs, tests/test_torch_vlm_encdec.py;
+  the hybrid its own, tests/test_torch_hybrid.py).
 """
 import jax
 import jax.experimental
@@ -42,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_archs as ref_all_archs
 from repro.configs import get_config as ref_get_config
 from repro.models import SHAPES as REF_SHAPES
 from repro.models import attention as RA
@@ -165,20 +167,19 @@ def test_decoder_matches_reference(arch, variant, flash):
             _cache_close(ref_cache, cache)
 
 
-def test_other_families_raise_not_implemented():
-    """The hybrid family (hymba-1.5b), the one the port has not reached,
-    raises naming its ROADMAP item; the registry holds the other nine."""
-    arch = "hymba-1.5b"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        get_config(arch)
-    ref_cfg = ref_get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        build_model(model_config_from_reference(ref_cfg), device="cpu")
-    assert sorted(all_archs()) == ["granite-3-2b", "kimi-k2-1t-a32b",
-                                   "llama3.2-3b", "llava-next-34b",
-                                   "mixtral-8x22b", "rwkv6-1.6b",
-                                   "seamless-m4t-large-v2", "smollm-360m",
-                                   "stablelm-3b"]
+def test_registry_equals_reference():
+    """The registry holds the reference's ten archs, the hybrid
+    (hymba-1.5b) among them, and each builds (on the meta device)."""
+    assert sorted(all_archs()) == sorted(ref_all_archs()) == [
+        "granite-3-2b", "hymba-1.5b", "kimi-k2-1t-a32b", "llama3.2-3b",
+        "llava-next-34b", "mixtral-8x22b", "rwkv6-1.6b",
+        "seamless-m4t-large-v2", "smollm-360m", "stablelm-3b"]
+    for arch in all_archs():
+        model = build_model(get_config(arch), device="meta")
+        assert model.cfg == model_config_from_reference(
+            ref_get_config(arch))
+    hybrid = build_model(get_config("hymba-1.5b"), device="meta")
+    assert isinstance(hybrid, DecoderLM) and hybrid.cfg.hybrid
 
 
 def test_model_defaults_to_the_card():
@@ -209,7 +210,7 @@ def test_vlm_and_encdec_models_default_to_the_card(arch):
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b",
                                   "llama3.2-3b", "llava-next-34b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "hymba-1.5b"])
 def test_full_width_parameters_match_reference(arch):
     """Every parameter of the full-width model, allocated on the meta
     device, has the reference's shape and dtype (``jax.eval_shape`` of its
@@ -234,6 +235,9 @@ def test_full_width_parameters_match_reference(arch):
     if ref_cfg.n_experts:
         assert got["blocks.0.moe.router"][1] == torch.float32
         assert got["blocks.0.moe.w1"][1] == torch.bfloat16
+    if ref_cfg.hybrid:
+        assert got["blocks.0.mamba.logA"][1] == torch.float32
+        assert got["blocks.0.mamba.in_proj"][1] == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +247,8 @@ def test_full_width_parameters_match_reference(arch):
 @pytest.mark.parametrize("arch", ["granite-3-2b", "llama3.2-3b",
                                   "smollm-360m", "stablelm-3b",
                                   "mixtral-8x22b", "kimi-k2-1t-a32b",
-                                  "llava-next-34b", "seamless-m4t-large-v2"])
+                                  "llava-next-34b", "seamless-m4t-large-v2",
+                                  "hymba-1.5b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(arch, reduced):
     mine, ref = get_config(arch, reduced=reduced), ref_get_config(arch, reduced)

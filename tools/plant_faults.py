@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's kernels (K1/K2), K3, model, K4, rwkv, K5, moe,
-train, launch and encdec checks on copies of the tree, each with one
+train, launch, encdec and hybrid checks on copies of the tree, each with one
 planted fault, to show where each check's tolerance sits.
 
     python3 tools/plant_faults.py [--faults NAME,...]
@@ -14,7 +14,9 @@ per run, what the checks read: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
 card-against-CPU parity, the vlm and encdec lines' route, decode and
-teacher-forced checks, and the error that stopped the run. A
+teacher-forced checks, the hybrid line's route, decode (logits, KV slots,
+Mamba state) and float32 card-against-CPU checks, and the error that
+stopped the run. A
 sound tree passes every check; each planted fault must fail one. Needs a
 CUDA device, as chip_smoke.py does.
 """
@@ -57,10 +59,11 @@ FAULTS = {
         ("k3", "model")),
     "k3_call_drops_window": (
         # the model's K3 calls without their window: the encoder of an
-        # encoder-decoder attends to every earlier frame
+        # encoder-decoder attends to every earlier frame, hymba's prefill
+        # to every earlier token
         "src/repro_torch/models/attention.py",
         "v.transpose(1, 2), causal=True, window=w)",
-        "v.transpose(1, 2), causal=True, window=0)", ("encdec",)),
+        "v.transpose(1, 2), causal=True, window=0)", ("encdec", "hybrid")),
     "k3_causal_diagonal_off_by_one": (
         "src/repro_torch/csrc/flash_attention.cu",
         "ok = ok && kpos <= qpos;", "ok = ok && kpos < qpos;",
@@ -132,6 +135,13 @@ FAULTS = {
         "src/repro_torch/models/moe.py",
         "w = (gate.reshape(T * K) * keep_u.float())[:, None]",
         "w = keep_u.float()[:, None]", ("moe",)),
+    "hybrid_mamba_state_not_carried": (
+        # each decode step starts every layer's Mamba branch from a zeroed
+        # conv and h, as if the prefill had left no state
+        "src/repro_torch/models/transformer.py",
+        "            layer = (layer, ssm_mod.MambaState(*(t[i] for t in m)))",
+        "            layer = (layer, ssm_mod.MambaState(\n"
+        "                *(torch.zeros_like(t[i]) for t in m)))", ("hybrid",)),
     "grouped_pack_stride_off_by_one_group": (
         "src/repro_torch/models/moe.py",
         "sorted_e * (G * C) + grp * C + rank",
@@ -175,7 +185,8 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "sample_losses", "params", "accuracy_card", "accuracy_cpu",
         "err_over_limit", "grads", "worst_grad", "worst_param",
         "encode_k3_vs_einsum", "decode_k3_vs_einsum_enc_kv",
-        "decode_vs_teacher_forced")
+        "decode_vs_teacher_forced", "mamba_vs_prefill", "f32_k3_vs_einsum",
+        "f32_decode_vs_prefill", "f32_card_vs_cpu")
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
@@ -212,7 +223,7 @@ def run(name: str, phase: str) -> dict:
         rec = json.loads(line)
         if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
                                 "moe", "train_parity", "launch_parity",
-                                "vlm", "encdec"):
+                                "vlm", "encdec", "hybrid"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,

@@ -8,6 +8,7 @@
     python3 tools/profile_torch_inference.py --arch llava-next-34b
     python3 tools/profile_torch_inference.py --arch seamless-m4t-large-v2 \\
         --prompt-len 4096
+    python3 tools/profile_torch_inference.py --arch hymba-1.5b
 
 Loads the model as the inference demo does (random weights from a seed,
 on ``cuda:0``), at the depth chip_smoke.py runs it (``smoke_config``:
@@ -23,8 +24,12 @@ For each part: wall time, the device's busy time (the sum of kernel and
 copy times), its idle share of the wall time, the time and share of the
 busy time of each hand-written kernel (K3 ``flash_attention``, K4
 ``rwkv_scan``, K5 ``moe_gemm``), and the kernels that took the most
-device time; and the peak device memory of the two. Prints one JSON
-object.
+device time; and the peak device memory of the two. For a hybrid
+(hymba-1.5b), the Mamba scan's loop (``models.ssm._selective_scan``)
+apart: its host seconds in one more prefill, each call timed between two
+device synchronisations, against that prefill's wall time; and the
+kernels one call launches at the prefill's shape (a layer's), traced
+alone. Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -38,6 +43,61 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 HAND_KERNELS = ("flash_attention", "rwkv_scan", "moe_gemm")
+
+
+def mamba_scan_share(torch, prefill, cfg, batch, seq) -> dict:
+    """The Mamba scan's loop in a prefill: host seconds of its calls (each
+    between two synchronisations) against the wall time of the same
+    prefill, and its device kernels a call, traced alone on random inputs
+    of the prefill's shape."""
+    from repro_torch.models import ssm
+    scan, spent = ssm._selective_scan, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = scan(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    ssm._selective_scan = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        ssm._selective_scan = scan
+    dev, d, n = torch.device("cuda:0"), cfg.d_model, cfg.ssm_state
+    gen = torch.Generator(dev).manual_seed(0)
+    x, dt = (torch.rand((batch, seq, d), device=dev, generator=gen)
+             for _ in range(2))
+    Bm, Cm = (torch.randn((batch, seq, n), device=dev, generator=gen)
+              for _ in range(2))
+    A = -torch.rand((d, n), device=dev, generator=gen)
+    h = torch.zeros((batch, d, n), device=dev)
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as tp:
+        t = time.perf_counter()
+        scan(x, dt, Bm, Cm, A, h)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+    ev = [e for e in tp.key_averages()
+          if getattr(e, "self_device_time_total", 0) > 0]
+    launches = sum(e.count for e in ev)
+    return {"calls": len(spent), "host_s": sum(spent),
+            "prefill_wall_s": wall, "share_of_prefill": sum(spent) / wall,
+            "one_call_s": one_s, "launches_per_call": launches,
+            "launches_per_prefill": launches * len(spent),
+            "device_ms_per_call": sum(e.self_device_time_total
+                                      for e in ev) / 1e3,
+            "top_device_per_call": [
+                [e.key[:90], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(ev, key=lambda e: -e.self_device_time_total)
+                [:4]]}
 
 
 def device_summary(tp, wall_s: float, top: int = 12) -> dict:
@@ -118,6 +178,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated()
+        scan = (mamba_scan_share(torch, prefill, cfg, args.batch,
+                                 args.prompt_len) if cfg.hybrid else None)
     print(json.dumps({
         "card": nvidia_smi(), "arch": cfg.name, "n_layers": cfg.n_layers,
         "batch": args.batch,
@@ -127,6 +189,7 @@ def main(argv=None) -> int:
         "decode": {**device_summary(td, decode_s),
                    "steps": args.gen - 1,
                    "tok_per_s": (args.gen - 1) * args.batch / decode_s},
+        "mamba_scan": scan,
     }))
     return 0
 
