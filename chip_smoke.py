@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs seventeen phases, each
+source, all started together) and then runs eighteen phases, each
 printing JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -175,13 +175,14 @@ printing JSON lines:
    ``LAUNCH_LOSS_TOL`` and parameters within ``LAUNCH_PARAM_RHO`` of the
    distance they moved (``launch_parity`` line). (b) The train driver,
    ``repro_torch.launch.train.main``, on the full smollm-360m (32 layers,
-   bf16, remat, DTensor state on the 1×1 host mesh): batch 8 x seq 2048,
-   20 steps, a checkpoint every 10 into a temporary directory; every loss
+   bf16, remat; the step a DTensor program on the 1×1 mesh of
+   ``fit_mesh``): batch 8 x seq 2048,
+   10 steps, a checkpoint every 5 into a temporary directory; every loss
    finite and the last below the first; median step ms, tokens/s and peak
-   device memory; then ``--steps 24`` in the same directory, which must
-   print ``resumed from step 20`` and take 4 steps. (c) The step-20
+   device memory; then ``--steps 12`` in the same directory, which must
+   print ``resumed from step 10`` and take 2 steps. (c) The step-10
    checkpoint, loaded, equals the first run's final parameters and AdamW
-   state bit for bit. (d) The step-24 checkpoint served through
+   state bit for bit. (d) The step-12 checkpoint served through
    ``make_prefill_step``/``make_decode_step`` (K3): batch 4, prompt 2048,
    16 greedy tokens, K3's count from zero just before the prefill and read
    just after (32, one per layer), the prefill's logits against the plain
@@ -226,6 +227,22 @@ printing JSON lines:
    same width cut to 2 layers, batch 1, a prompt of 256, one decode step:
    logits, K/V, Mamba state) within ``HYBRID_F32_TOL`` (the Mamba scan
    has no kernel to hold to a plain version).
+18. ``spmd`` — the sharded step (``repro_torch.launch`` with a mesh: each
+   step a DTensor program) on the 1×1 mesh of ``launch.train.fit_mesh``,
+   which starts NCCL at world size 1 (``SPMD``). smollm-360m's train step
+   at full width (bf16, remat, the default AdamW, batch 8 x seq 2048)
+   against the plain step from the same weights and batches, TF32 off:
+   the first step's gradients within ``GRAD_TOL``, 3 steps' losses within
+   ``LAUNCH_LOSS_TOL`` and parameters within ``LAUNCH_PARAM_RHO``; each
+   step's ms on both. Then llama3.2-3b whole, mixtral-8x22b cut to 2
+   layers and rwkv6-1.6b whole through ``make_prefill_step`` and
+   ``make_decode_step``: batch 4, prompt 2048, 16 greedy tokens without a
+   mesh, then on the mesh route (the weights and tokens DTensors; K3, K4
+   and K5 run per rank in ``local_map``) fed the same tokens; every
+   position's logits within ``LOGIT_TOL``; K3, K4 and K5's counts set to 0
+   just before the mesh route's prefill and read after it (llama: 28 K3
+   launches) and after its decode steps; prefill ms and decode tokens/s
+   of both routes (``spmd`` line).
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -238,13 +255,13 @@ a checkout, it exits non-zero and prints no result.
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
 ``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13),
-``launch`` (14), ``vlm`` (15), ``encdec`` (16) and ``hybrid`` (17), after
-``env``, and then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
+``launch`` (14), ``vlm`` (15), ``encdec`` (16), ``hybrid`` (17) and
+``spmd`` (18), after ``env``, and then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
 the quick check of a new K3, K4 or K5 build, ``--phases service`` runs the
 service alone, ``--phases train`` the federated training alone,
 ``--phases launch`` the DecoderLM training, checkpoint and serving alone,
 ``--phases vlm``, ``--phases encdec`` and ``--phases hybrid`` llava,
-seamless and hymba alone.
+seamless and hymba alone, ``--phases spmd`` the sharded step alone.
 """
 from __future__ import annotations
 
@@ -421,10 +438,10 @@ SERVICE_FAULTS = ("crash=0.005,dropout=0.05,straggler=0.05,delay=0.2,"
 # rounds, SGD learning rate). examples/train_federated.py's lr 0.05 trains
 # the LSTM; the reference's own JaxTrainer diverges at it on the full-width
 # ConvNet and KWT-1 (whose loss turns NaN), and trains them at 0.001 and
-# 0.005 (PERF.md §4). The rounds were cut from 10, 5 and 5 to keep the whole
-# script inside its time (PERF.md §4); each run's loss still falls by its
-# last round (PERF.md §6)
-TRAIN_RUNS = {"convnet": (5, 0.001), "kwt": (3, 0.005), "lstm": (3, 0.05)}
+# 0.005 (PERF.md §4). The rounds were cut from 10, 5 and 5, then KWT-1's and
+# the LSTM's from 3, to keep the whole script inside its time (PERF.md §4);
+# each run's loss still falls by its last round (PERF.md §6)
+TRAIN_RUNS = {"convnet": (5, 0.001), "kwt": (2, 0.005), "lstm": (2, 0.05)}
 # the paper's loop as examples/train_federated.py runs it (FedProx, SGD),
 # scheduled by FedZero over 100 clients; the parity check's local updates
 TRAIN = dict(clients=100, n=10, d_max=60, max_steps=30, batch=10,
@@ -444,13 +461,14 @@ TRAIN_ACC_TOL = 0.01
 # CPU's, each relative to its largest value
 GRAD_TOL = 1e-4
 # training a DecoderLM through repro_torch.launch: smollm-360m at full width
-# and depth (remat, the default AdamW), batch 8 x seq 2048, 20 steps with a
-# checkpoint every 10, then resumed to 24; served from the step-24
+# and depth (remat, the default AdamW), batch 8 x seq 2048, 10 steps with a
+# checkpoint every 5, then resumed to 12 (cut from 20 and 24 to keep the
+# script inside its time, PERF.md §4); served from the step-12
 # checkpoint at batch 4, prompt 2048, 16 greedy tokens on K3. The card
 # against the CPU runs 3 steps of the same width cut to 2 layers in
 # float32, batch 2 x seq 256
-LAUNCH = dict(arch="smollm-360m", batch=8, seq=2048, steps=20, ckpt_every=10,
-              resume_steps=24, serve_batch=4, prompt=2048, gen=16, seed=0,
+LAUNCH = dict(arch="smollm-360m", batch=8, seq=2048, steps=10, ckpt_every=5,
+              resume_steps=12, serve_batch=4, prompt=2048, gen=16, seed=0,
               parity_layers=2, parity_batch=2, parity_seq=256,
               parity_steps=3)
 # the card against the CPU, same weights and batches, TF32 off: the first
@@ -463,9 +481,22 @@ LAUNCH = dict(arch="smollm-360m", batch=8, seq=2048, steps=20, ckpt_every=10,
 # measure, a tensor left out of the update reads 1)
 LAUNCH_LOSS_TOL = 1e-4
 LAUNCH_PARAM_RHO = 0.05
+# the sharded step (repro_torch.launch with a mesh: DTensor programs) on
+# the 1×1 mesh of fit_mesh over NCCL: smollm-360m's train step at full
+# width (bf16, remat, the default AdamW), batch 8 x seq 2048, 3 steps,
+# against the plain step from the same weights and batches (the first
+# step's gradients within GRAD_TOL, losses within LAUNCH_LOSS_TOL, the
+# parameters within LAUNCH_PARAM_RHO); prefill and 16 greedy tokens on the
+# mesh route (K3, K4, K5 in local_map) against the route without a mesh,
+# fed the same tokens, within LOGIT_TOL: llama3.2-3b whole, mixtral-8x22b
+# cut to 2 layers, rwkv6-1.6b whole; batch 4, prompt 2048
+SPMD = dict(arch="smollm-360m", batch=8, seq=2048, steps=3, seed=0,
+            infer=(("llama3.2-3b", None), ("mixtral-8x22b", 2),
+                   ("rwkv6-1.6b", None)),
+            infer_batch=4, prompt=2048, gen=16)
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
           "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
-          "hybrid")
+          "hybrid", "spmd")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -2805,9 +2836,9 @@ def serve_trained(torch, cfg, params):
 
 def run_launch(torch):
     """Phase 14: (a) the train step on the card against the CPU; (b)
-    smollm-360m trained at full width by the train driver, 20 steps with
-    checkpoints, then resumed to 24; (c) the step-20 checkpoint against the
-    first run's final state, bit for bit; (d) the step-24 checkpoint served
+    smollm-360m trained at full width by the train driver, 10 steps with
+    checkpoints, then resumed to 12; (c) the step-10 checkpoint against the
+    first run's final state, bit for bit; (d) the step-12 checkpoint served
     on K3."""
     import tempfile
     from repro_torch.configs import get_config
@@ -2896,12 +2927,210 @@ def run_launch(torch):
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 18: the sharded step on a 1×1 mesh over NCCL
+
+
+def spmd_train(torch, mesh):
+    """smollm-360m's train step as a DTensor program on ``mesh`` against
+    the plain step: the first step's gradients (a step whose "optimizer"
+    returns them), then ``SPMD["steps"]`` AdamW steps, each side timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import Optimizer
+    from repro_torch.sharding import step_placements
+    S, dev = SPMD, torch.device("cuda:0")
+    cfg = get_config(S["arch"])
+    grads_opt = Optimizer(init=lambda p: {}, update=lambda g, s, p: (g, s))
+    model = build_model(cfg, use_kernels=False, device=dev).init(
+        torch.Generator(dev).manual_seed(S["seed"]))
+    p0 = {n: t.detach() for n, t in model.named_parameters()}
+    del model
+    rng = np.random.default_rng(S["seed"])
+    batches = [synthetic_lm_batch(rng, S["batch"], S["seq"], cfg.vocab, dev)
+               for _ in range(S["steps"])]
+    side = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        _, _, grad_step = steps.make_train_step(cfg, grads_opt, device=dev,
+                                                mesh=m)
+        _, opt, step = steps.make_train_step(cfg, device=dev, mesh=m)
+        p, s, bs = dict(p0), opt.init(p0), list(batches)
+        if m is not None:
+            pl, ol, bpl = step_placements("train", m, params=p, opt_state=s,
+                                          batch=bs[0])["in"]
+            p, s = train.distribute(p, pl, m), train.distribute(s, ol, m)
+            bs = [train.distribute(b, bpl, m) for b in bs]
+        g, _, _ = grad_step(p, {}, bs[0])
+        g = train.gather(g) if m is not None else g
+        losses, ms = [], []
+        for b in bs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, s, loss = step(p, s, b)
+            loss = loss.full_tensor() if m is not None else loss
+            losses.append(float(loss))
+            ms.append(1e3 * (time.perf_counter() - t))
+        p = train.gather(p) if m is not None else p
+        side[name] = (g, p, losses, ms)
+        del s
+    (gm, pm, lm, tm), (gp, pp, lp, tp) = side["mesh"], side["plain"]
+    grads = {n: rel_max(gm[n].float(), gp[n].float()) for n in gp}
+    rho = {n: float((pm[n].float() - pp[n].float()).norm()
+                    / (pp[n].float() - p0[n].float()).norm()) for n in pp}
+    losses = float(np.max(np.abs(np.subtract(lm, lp)) / np.abs(lp)))
+    worst_g = max(grads, key=lambda n: grads[n])
+    worst_p = max(rho, key=lambda n: rho[n])
+    got = {"grads": grads[worst_g], "losses": losses, "params": rho[worst_p]}
+    limits = {"grads": GRAD_TOL, "losses": LAUNCH_LOSS_TOL,
+              "params": LAUNCH_PARAM_RHO}
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=str(cfg.dtype),
+                batch=S["batch"], seq=S["seq"], steps=S["steps"], remat=True,
+                **got, worst_grad=worst_g, worst_param=worst_p,
+                limits=limits,
+                err_over_limit={k: v / limits[k] for k, v in got.items()},
+                losses_mesh=lm, losses_plain=lp, step_ms_mesh=tm,
+                step_ms_plain=tp,
+                finite=bool(all(np.isfinite(lm)) and all_finite(
+                    torch, *gm.values(), *pm.values())))
+
+
+def spmd_infer(torch, mesh, arch, n_layers):
+    """``arch`` (cut to ``n_layers``) through ``make_prefill_step`` and
+    ``make_decode_step``: without a mesh, then on the mesh route, fed the
+    same tokens. The launch counts of K3, K4 and K5 are set to 0 just
+    before the mesh route's prefill and read after it and after its
+    decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.inference_demo import make_prompts
+    from repro_torch.sharding import step_placements
+    S, dev = SPMD, torch.device("cuda:0")
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, P, gen = S["infer_batch"], S["prompt"], S["gen"]
+    runs = {}
+    for route, m in (("plain", None), ("mesh", mesh)):
+        model, prefill = steps.make_prefill_step(cfg, "prefill_32k",
+                                                 device=dev, mesh=m)
+        model.init(torch.Generator(dev).manual_seed(S["seed"]))
+        dmodel, decode = steps.make_decode_step(cfg, "decode_32k",
+                                                device="meta", mesh=m)
+        dmodel.load_state_dict(model.state_dict(), assign=True)
+        prompts = make_prompts(cfg, B, P, S["seed"], dev)
+
+        def put(t, m=m):
+            return t if m is None else train.distribute(
+                t, step_placements("prefill", m, tokens=t)["in"][1], m)
+
+        if m is not None:
+            steps.distribute_model(model, m)
+            steps.distribute_model(dmodel, m)
+            fed = runs["plain"]["fed"]
+        prefill(put(prompts[:, :256]), 258)   # warm-up
+        fa.flash_attention.launches = 0
+        rs.rwkv_scan.launches = 0
+        mg.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(put(prompts), P + gen)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        k3, k4, k5 = (fa.flash_attention.launches, rs.rwkv_scan.launches,
+                      mg.moe_gemm.launches)
+        out = [logits.full_tensor() if m is not None else logits]
+        if m is None:
+            fed = [torch.argmax(out[0][:, -1], -1)[:, None]]
+        t = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = decode(cache, put(fed[i]))
+            out.append(logits.full_tensor() if m is not None else logits)
+            if m is None:
+                fed.append(torch.argmax(out[-1][:, -1], -1)[:, None])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        runs[route] = dict(fed=fed, logits=[o[:, -1:].float() for o in out],
+                           prefill_ms=prefill_ms,
+                           decode_tok_per_s=(gen - 1) * B / decode_s,
+                           k3_launches=k3, k4_launches=k4,
+                           k5_launches_prefill=k5,
+                           k5_launches=mg.moe_gemm.launches)
+        del model, dmodel, cache, logits
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["plain"]
+    agree = [logits_agree(torch, x, y) for x, y in zip(a["logits"],
+                                                      b["logits"])]
+    worst = max(agree, key=lambda r: r["rel_diff"])
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, prompt=P,
+                gen=gen, mesh_vs_plain=worst,
+                prefill_ms_mesh=a["prefill_ms"],
+                prefill_ms_plain=b["prefill_ms"],
+                decode_tok_per_s_mesh=a["decode_tok_per_s"],
+                decode_tok_per_s_plain=b["decode_tok_per_s"],
+                **{k: a[k] for k in ("k3_launches", "k4_launches",
+                                     "k5_launches_prefill", "k5_launches")},
+                finite=all_finite(torch, *a["logits"]))
+
+
+def run_spmd(torch):
+    """Phase 18: NCCL at world size 1 and the 1×1 mesh of ``fit_mesh``;
+    smollm-360m's DTensor train step against the plain step; llama3.2-3b,
+    mixtral-8x22b (2 layers) and rwkv6-1.6b on the mesh route."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    mesh = train.fit_mesh(torch.device("cuda:0"))
+    try:
+        group = dict(backend=dist.get_backend(),
+                     world=dist.get_world_size(),
+                     mesh=list(mesh.shape),
+                     axes=list(mesh.mesh_dim_names))
+        t = time.perf_counter()
+        step = spmd_train(torch, mesh)
+        step["s"] = time.perf_counter() - t
+        infer = {}
+        for arch, n_layers in SPMD["infer"]:
+            t = time.perf_counter()
+            infer[arch] = spmd_infer(torch, mesh, arch, n_layers)
+            infer[arch]["s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    emit("spmd", **group, train=step, infer=infer,
+         s=time.perf_counter() - t0)
+    require(group["backend"] == "nccl" and group["world"] == 1
+            and group["mesh"] == [1, 1], f"spmd: the group {group}")
+    for k, v in step["err_over_limit"].items():
+        require(not v > 1.0 and v == v,
+                f"spmd: the DTensor train step against the plain step, {k} "
+                f"{step[k]} > {step['limits'][k]}")
+    require(step["finite"], "spmd: a non-finite loss or gradient")
+    for arch, r in infer.items():
+        require(r["finite"], f"spmd: {arch}'s mesh-route logits not finite")
+        require(r["mesh_vs_plain"]["ok"],
+                f"spmd: {arch} mesh route != plain: {r['mesh_vs_plain']}")
+    llama = infer["llama3.2-3b"]
+    require(llama["k3_launches"] == 28,
+            f"spmd: K3 launched {llama['k3_launches']} times in llama's "
+            "mesh-route prefill, want 28")
+    require(infer["mixtral-8x22b"]["k5_launches"] > 0,
+            "spmd: K5 never launched on mixtral's mesh route")
+    require(infer["rwkv6-1.6b"]["k4_launches"] > 0,
+            "spmd: K4 never launched on rwkv6's mesh route")
+    return {"train": step, "infer": infer}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--clients", type=int, default=1_000_000)
-    # 150 steps of the 1M-client day: cut from 200 (34 rounds) to keep the
-    # whole script inside its time (PERF.md §4)
-    ap.add_argument("--until-step", type=int, default=150)
+    # 131 steps of the 1M-client day (20 rounds, the least the phase
+    # takes): cut from 200 (34 rounds), then 150 (23), to keep the whole
+    # script inside its time (PERF.md §4)
+    ap.add_argument("--until-step", type=int, default=131)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
@@ -2985,6 +3214,8 @@ def main(argv=None) -> int:
         run_encdec(torch)
     if "hybrid" in phases:
         run_hybrid(torch)
+    if "spmd" in phases:
+        run_spmd(torch)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]

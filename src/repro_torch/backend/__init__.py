@@ -19,20 +19,26 @@ Backends are process-wide singletons per name, so repeated
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 from .base import ArrayBackend
 from .numpy_backend import NumpyBackend
 
 __all__ = ["ArrayBackend", "NumpyBackend", "get_backend",
-           "available_backends"]
+           "available_backends", "register_backend"]
 
+_FACTORIES: Dict[str, Callable[[], ArrayBackend]] = {}
 _SINGLETONS: Dict[str, ArrayBackend] = {}
+
+
+def register_backend(name: str, factory: Callable[[], ArrayBackend]):
+    """Register a third-party backend factory under ``name``."""
+    _FACTORIES[str(name).lower()] = factory
 
 
 def available_backends():
     """Names ``get_backend`` accepts."""
-    return ("cuda", "numpy", "torch")
+    return tuple(sorted({"cuda", "numpy", "torch", *_FACTORIES}))
 
 
 def get_backend(spec=None) -> ArrayBackend:
@@ -56,6 +62,8 @@ def get_backend(spec=None) -> ArrayBackend:
     elif name == "cuda":
         from .cuda_backend import CudaBackend
         bk = CudaBackend()
+    elif name in _FACTORIES:
+        bk = _FACTORIES[name]()
     else:
         raise KeyError(
             f"unknown array backend {name!r}; available: "

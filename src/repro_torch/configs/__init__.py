@@ -35,3 +35,16 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
 
 def all_archs():
     return list(ARCHS)
+
+
+def paper_model(name: str, **kw):
+    """The paper's own evaluation models (Section 5.1): ``"shakespeare-lstm"``,
+    ``"kwt1"`` or ``"convnet"``, built with ``kw`` (their widths, and
+    ``device``: ``cuda:0`` unless named)."""
+    from repro_torch.models.paper_models import ConvNet, KWTModel, LSTMModel
+    builders = {
+        "shakespeare-lstm": lambda: LSTMModel(**kw),
+        "kwt1": lambda: KWTModel(**kw),
+        "convnet": lambda: ConvNet(**kw),
+    }
+    return builders[name]()

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _shards
 
 _SRC = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1e30
@@ -104,6 +104,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                          f"v {tuple(v.shape)} do not match")
     if H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if _shards.is_dtensor(q):
+        return _on_mesh(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale)
     _build.refuse_grad("flash_attention", q, k, v)
@@ -145,3 +147,53 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def _on_mesh(q, k, v, causal, window, scale):
+    """K3 on DTensors: each rank runs the kernel on its shard. Per mesh
+    dim, q, k and v may be replicated, or sharded alike and evenly on the
+    batch (dim 0) or the heads (dim 1). On one mesh dim q may be sharded
+    on its heads while k and v are replicated there (the kv heads do not
+    divide it, as the einsum route leaves them): each rank then takes the
+    kv heads its query heads group over, which needs a rank's query heads
+    to span whole groups or to lie within one. The sequence and the head
+    dim may not be sharded. Anything else raises ``ValueError``. On meta
+    tensors (the dry run's DTensor programs) the kernel is stood in for
+    by its plain version, on the same shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (_shards.is_dtensor(k) and _shards.is_dtensor(v)
+            and k.placements == v.placements):
+        raise _shards.refuse("flash_attention", "q, k and v must be DTensors, "
+                             "k and v with one placement", q)
+    sliced = None  # the mesh dim on which each rank takes its own kv heads
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq == pk and (isinstance(pq, Replicate)
+                         or (isinstance(pq, Shard) and pq.dim in (0, 1))):
+            continue
+        if pq == Shard(1) and isinstance(pk, Replicate) and sliced is None:
+            sliced = i
+            continue
+        raise _shards.refuse("flash_attention", f"placements ({pq}, {pk}) of "
+                             "q and k on one mesh dim: only the batch and the "
+                             "heads may be sharded", q, k, v)
+    for t in (q, k):
+        _shards.evenly_sharded("flash_attention", t)
+    lo, n = 0, k.shape[1]
+    if sliced is not None:
+        if Shard(1) in k.placements:
+            raise _shards.refuse("flash_attention", "the kv heads are sharded "
+                                 "on one mesh dim and not on another", q, k, v)
+        h = q.shape[1] // q.device_mesh.size(sliced)  # query heads a rank
+        group = q.shape[1] // k.shape[1]
+        if h % group and group % h:
+            raise _shards.refuse("flash_attention", f"a rank's {h} query heads "
+                                 f"straddle groups of {group}", q, k, v)
+        lo = q.device_mesh.get_local_rank(sliced) * h // group
+        n = max(h // group, 1)
+    kernel = flash_attention_plain if q.is_meta else flash_attention
+
+    def local(q, k, v):
+        return kernel(q, k[:, lo:lo + n], v[:, lo:lo + n], causal, window,
+                      scale)
+
+    return _shards.on_shards(local, q.placements, q, k, v)

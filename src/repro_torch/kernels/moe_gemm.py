@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _shards
 
 _SRC = _build.CSRC / "moe_gemm.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -96,6 +96,8 @@ def moe_gemm(x, w):
     would differentiate raise ``RuntimeError`` (the kernels have no
     backward: :func:`._build.refuse_grad`)."""
     _check(x, w)
+    if _shards.is_dtensor(x):
+        return _on_mesh(x, w)
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w)
     variant = "f32" if x.dtype == torch.float32 else pick_variant(x.shape[1])
@@ -136,6 +138,37 @@ def launch(x, w, variant: str):
     moe_gemm.launches += 1
     moe_gemm.variant_launches[variant] += 1
     return out
+
+
+def _on_mesh(x, w):
+    """K5 on DTensors: each rank multiplies its shard. Per mesh dim, (x,
+    w) may be (replicated, replicated), the experts (``Shard(0)``, both),
+    x's rows (``Shard(1)``, w replicated), w's columns (x replicated,
+    ``Shard(2)``: the out's columns) or the contraction (x ``Shard(2)``, w
+    ``Shard(1)``: the out is a partial sum), evenly; anything else raises
+    ``ValueError``. On meta tensors (the dry run's DTensor programs) the
+    kernel is stood in for by its plain version, on the same shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not _shards.is_dtensor(w) or w.device_mesh != x.device_mesh:
+        raise _shards.refuse("moe_gemm", "x and w must be DTensors of one "
+                             "mesh", x)
+    rules = {(None, None): Replicate(), (0, 0): Shard(0), (1, None): Shard(1),
+             (None, 2): Shard(2), (2, 1): Partial()}
+
+    def dim(p):
+        return p.dim if isinstance(p, Shard) else (
+            None if isinstance(p, Replicate) else "partial")
+
+    out = []
+    for px, pw in zip(x.placements, w.placements):
+        if (dim(px), dim(pw)) not in rules:
+            raise _shards.refuse("moe_gemm", f"placements ({px}, {pw}) on one "
+                                 "mesh dim", x, w)
+        out.append(rules[dim(px), dim(pw)])
+    for t in (x, w):
+        _shards.evenly_sharded("moe_gemm", t)
+    kernel = moe_gemm_plain if x.is_meta else moe_gemm
+    return _shards.on_shards(kernel, tuple(out), x, w)
 
 
 def reset_counts():

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _shards
 
 _SRC = _build.CSRC / "rwkv_scan.cu"
 HEAD_DIMS = (16, 32, 64)
@@ -255,6 +255,9 @@ def rwkv_scan(r, k, v, w, u, return_state: bool = False):
     differentiate raise ``RuntimeError`` (the kernels have no backward:
     :func:`._build.refuse_grad`)."""
     _check(r, k, v, w, u)
+    if _shards.is_dtensor(r):
+        return on_mesh(lambda *a: rwkv_scan(*a, return_state=return_state),
+                       r, k, v, w, u, return_state)
     if r.device.type == "cpu":
         out, state = rwkv_scan_plain(r.float(), k.float(), v.float(), w, u)
         return (out, state) if return_state else out
@@ -294,6 +297,70 @@ def rwkv_scan(r, k, v, w, u, return_state: bool = False):
                            f"({msg})")
     rwkv_scan.launches += n_launches.value
     return (out, state) if return_state else out
+
+
+def u_like(u, r):
+    """The bonus ``u`` [H, dh] on the placements :func:`on_mesh` takes
+    beside DTensor ``r``: sharded on its heads where r's heads are,
+    replicated elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    want = [Shard(0) if p == Shard(2) else Replicate() for p in r.placements]
+    if not isinstance(u, DTensor):
+        u = DTensor.from_local(u, r.device_mesh,
+                               [Replicate()] * r.device_mesh.ndim,
+                               run_check=False)
+    return u.redistribute(r.device_mesh, want)
+
+
+def _meta_scan(r, k, v, w, u):
+    """The scan's stand-in on meta tensors: (out [B, S, H, dh], state
+    [B, H, dh, dh]) float32, each a function of every input, so that a
+    meta run's autograd graph reaches them all; one op a call, where the
+    recurrence loops over the tokens."""
+    out = (r * k * v).float() * w * u
+    state = torch.einsum("bshk,bshv->bhkv", k.float() * w, v.float())
+    return out, state
+
+
+def on_mesh(scan, r, k, v, w, u, return_state=True):
+    """``scan(r, k, v, w, u)`` (K4 or the plain recurrence; it returns
+    (out, state) when ``return_state``, else out) on DTensors: each rank
+    scans its own streams. Per mesh dim, r, k, v and w may be replicated,
+    or sharded alike and evenly on the batch (``Shard(0)``; u replicated)
+    or on the heads (``Shard(2)``; u ``Shard(0)``); anything else raises
+    ``ValueError``. The state comes out sharded as its streams: batch
+    ``Shard(0)``, heads ``Shard(1)``. On meta tensors (the dry run's DTensor
+    programs) the scan, which issues no collective, is :func:`_meta_scan`:
+    the same shapes and placements, without a loop over the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ts = (r, k, v, w)
+    if not (all(_shards.is_dtensor(t) and t.placements == r.placements
+                for t in ts) and _shards.is_dtensor(u)):
+        raise _shards.refuse("rwkv_scan", "r, k, v, w and u must be DTensors, "
+                             "r, k, v and w with one placement", r)
+    # u's gradient sums over the batch rows: partial where they are split
+    state_pl, u_pl, u_grad = [], [], []
+    for p in r.placements:
+        if isinstance(p, Replicate):
+            state_pl.append(p)
+            u_pl.append(p)
+            u_grad.append(p)
+        elif isinstance(p, Shard) and p.dim in (0, 2):
+            state_pl.append(Shard(0 if p.dim == 0 else 1))
+            u_pl.append(Replicate() if p.dim == 0 else Shard(0))
+            u_grad.append(Partial() if p.dim == 0 else Shard(0))
+        else:
+            raise _shards.refuse("rwkv_scan", f"placement {p}: only the batch "
+                                 "and the heads may be sharded", *ts)
+    if tuple(u.placements) != tuple(u_pl):
+        raise _shards.refuse("rwkv_scan", f"u must be {tuple(u_pl)}", r, u)
+    _shards.evenly_sharded("rwkv_scan", r)
+    out_pl = (r.placements, tuple(state_pl)) if return_state else r.placements
+    if r.is_meta:  # a dry run: the rank-local scan's shapes alone
+        scan = _meta_scan if return_state else (
+            lambda *a: _meta_scan(*a)[0])
+    return _shards.on_shards(scan, out_pl, r, k, v, w, u,
+                             grad_placements=(None,) * 4 + (tuple(u_grad),))
 
 
 rwkv_scan.launches = 0

@@ -31,31 +31,73 @@ nothing is compiled. Per record:
   (``a + b S + c S^2``: the projections and the scan's ``h . C`` are linear
   in S, the einsum route's masked scores quadratic).
 
-The reference's XLA fields (HLO FLOPs and bytes per device, collectives,
-memory analysis, compile times) and its layer-count cost probes have no
+The SPMD fields, the counterpart of the reference's "lowers + compiles"
+and its per-device collectives, come from runs of each step as a DTensor
+program (``make_*_step(..., mesh=)``) on meta tensors over the production
+mesh itself: a ``DeviceMesh`` of 256 or 512 ranks on torch's fake process
+group (``torch.testing._internal.distributed.fake_pg``, torch's internal
+test module: one process, collectives that move nothing). Per record
+(:func:`spmd_record`):
+
+* ``spmd_ok``: the step ran as a DTensor program under the strategy's
+  placements and returned its outputs on the out-placements (new
+  parameters and state as they came in and the loss replicated; the
+  prefill's logits replicated and its cache as ``cache_specs`` places it;
+  the decode step's logits replicated and its cache as it came in);
+* ``collective_counts`` and ``collective_bytes`` for the reference's five
+  op types (:data:`COLLECTIVES`), and ``collective_bytes_total``, per
+  device: each collective's result bytes, an all-reduce counted twice, as
+  the reference's ``parse_collective_bytes`` counts them (a
+  ``TorchDispatchMode`` over the ``_c10d_functional`` ops; the counts are
+  ``CommDebugMode``'s, and must agree). The fake mesh's device type is
+  ``cuda``, so DTensor issues the collectives it would over NCCL: a
+  move of a shard from one tensor dim to another is an all-to-all
+  (on a ``cpu`` mesh it would be an all-gather and a slice);
+* ``spmd_method``: the layers' program repeats, so the step runs at 2 and
+  3 layers (``PROBE_LAYERS``; the first layer's program is its own), its
+  collectives extrapolated as the reference's cost probe does
+  (``c2 + (L - 2)(c3 - c2)``, exact where the layers after the first are
+  alike), at the shape's own batch and sequence (DTensor picks its strategies by the
+  bytes they move, so a shorter run may pick others). Prefill and decode
+  run the kernel route, as ``make_prefill_step`` and ``make_decode_step``
+  build it: each kernel's wrapper checks the placements it is given and
+  runs rank-local, issuing no collective; on meta tensors K3 and K5 are
+  stood in for by their plain versions, and rwkv6's scan by one op of the
+  same shapes (``kernels.rwkv_scan._meta_scan``) in place of a loop over
+  the tokens.
+
+The vlm, encoder-decoder and hybrid families do not run on a mesh yet:
+their records say so in ``spmd`` (:data:`SPMD_NOT_PORTED`). The reference's
+HLO FLOPs and bytes, memory analysis and compile times have no
 counterpart here. A step that fails is recorded as an error row, as the
 reference records a failure.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import time
 import traceback
+from collections import defaultdict
 from fractions import Fraction
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import all_archs, get_config
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_train_step)
+from repro_torch.launch.steps import (distribute_model, make_decode_step,
+                                      make_prefill_step, make_train_step,
+                                      place_cache)
 from repro_torch.models import SHAPES, input_specs, params_spec
-from repro_torch.sharding import (STRATEGIES, cache_specs, port_param_specs,
-                                  sharded_bytes)
+from repro_torch.sharding import (STRATEGIES, MeshShape, cache_specs,
+                                  port_param_specs, sharded_bytes,
+                                  step_placements)
 
 # family -> sequence lengths of the meta runs of its train or prefill
 # step, one more than the degree of its FLOPs in the sequence length
@@ -65,6 +107,245 @@ PROBE_FIT = {2: "linear", 3: "quadratic"}
 
 def probe_family(cfg):
     return "hybrid" if cfg.hybrid else cfg.family
+
+
+# ---------------------------------------------------------------------------
+# the step as a DTensor program on the production mesh
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# the namespaces of the ops a DTensor program's collectives become: the
+# functional collectives, and DTensor's own all-to-all (a move of a shard
+# from one tensor dim to another)
+COLLECTIVE_OPS = ("_c10d_functional", "c10d_functional", "_dtensor")
+SPMD_FAMILIES = ("dense", "moe", "ssm")
+# the depths of the DTensor runs: the first layer's program differs from
+# the others' (DTensor picks its strategies by the placements that come
+# in, and the first layer's come from the embedding), so the line runs
+# through 2 and 3 layers, from which on each layer adds the same program
+PROBE_LAYERS = (2, 3)
+SPMD_NOT_PORTED = ("not ported yet: the vlm, encoder-decoder and hybrid "
+                   "families run on one device; on a mesh they are the next "
+                   "slice")
+
+
+def _collective_kind(func):
+    """The reference's op type of a functional (or c10d) collective, or
+    None."""
+    name = func._overloadpacket.__name__.rstrip("_")
+    for key, kind in (("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+                      ("reduce_scatter", "reduce-scatter"),
+                      ("all_gather", "all-gather"), ("allgather", "all-gather"),
+                      ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+                      ("permute", "collective-permute"),
+                      ("send", "collective-permute")):
+        if key in name:
+            return kind
+    return None
+
+
+def _collective_bytes_mode():
+    """A ``TorchDispatchMode`` that adds up, per op type, the bytes of each
+    collective's per-device result (an all-reduce twice). It lets DTensor
+    ops through first (``NotImplemented``), as ``CommDebugMode`` does, and
+    sees the collectives they become."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CollectiveBytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = defaultdict(int)
+            self.counts = defaultdict(int)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **(kwargs or {}))
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            kind = (_collective_kind(func) if func.namespace in COLLECTIVE_OPS
+                    else None)
+            if kind is not None:
+                n = out.numel() * out.element_size()
+                self.bytes[kind] += 2 * n if kind == "all-reduce" else n
+                self.counts[kind] += 1
+            return out
+
+    return CollectiveBytes()
+
+
+_FAKE = {"mesh": None, "depth": 0}
+
+
+@contextlib.contextmanager
+def fake_group():
+    """Scope of the fake process groups: :func:`fake_mesh` keeps one group
+    (and its mesh) alive within it, and the outermost scope ends it. Raises
+    where a real process group exists."""
+    if _FAKE["depth"] == 0 and dist.is_initialized():
+        raise RuntimeError("the dry run builds its meshes on a fake process "
+                           "group of its own; a process group exists")
+    _FAKE["depth"] += 1
+    try:
+        yield
+    finally:
+        _FAKE["depth"] -= 1
+        if _FAKE["depth"] == 0 and dist.is_initialized():
+            dist.destroy_process_group()
+            _FAKE["mesh"] = None
+
+
+def fake_mesh(mesh_shape):
+    """A ``DeviceMesh`` of ``mesh_shape`` (a ``MeshShape``) over torch's
+    fake process group of as many ranks, within :func:`fake_group`. Its
+    device type is ``cuda``, the production mesh's (NCCL), though no
+    device is touched (the tensors are meta): DTensor plans a mesh's
+    collectives by its device type, and on a ``cpu`` mesh (gloo) it
+    replaces each all-to-all by an all-gather and a slice."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if _FAKE["depth"] == 0:
+        raise RuntimeError("fake_mesh needs a fake_group() scope")
+    held = _FAKE["mesh"]
+    if held is not None and held[0] == mesh_shape:
+        return held[1]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh_shape.size)
+    mesh = init_device_mesh("cuda", mesh_shape.axis_sizes,
+                            mesh_dim_names=mesh_shape.axis_names)
+    _FAKE["mesh"] = (mesh_shape, mesh)
+    return mesh
+
+
+def _placements(tree):
+    if isinstance(tree, dict):
+        return {k: _placements(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_placements(v) for v in tree)
+    return tuple(tree.placements)
+
+
+def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
+    """One run of ``cfg``'s step for ``shape_name`` as a DTensor program on
+    ``mesh`` under ``strategy``, on meta tensors: whether its outputs came
+    out on the out-placements, and its collectives (counts and bytes per
+    op type, per device)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.train import distribute
+    kind, full = input_specs(cfg, shape_name)
+    specs = full if specs is None else specs
+    counter = _collective_bytes_mode()
+    if kind == "train":
+        model, opt, step = make_train_step(cfg, device="meta", mesh=mesh)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        state = opt.init(params)
+        places = step_placements("train", mesh, strategy, params=params,
+                                 opt_state=state, batch=specs["batch"])
+        args = tuple(distribute(t, pl, mesh) for t, pl in zip(
+            (params, state, specs["batch"]), places["in"]))
+        with CommDebugMode() as comm, counter:
+            out = step(*args)
+        got = (_placements(out[0]), _placements(out[1]),
+               tuple(out[2].placements))
+    elif kind == "prefill":
+        # the kernel route, as make_prefill_step builds it: the kernels'
+        # wrappers check their placements and stand in for the kernels
+        # on meta tensors
+        model, step = make_prefill_step(cfg, shape_name, device="meta",
+                                        mesh=mesh, strategy=strategy)
+        distribute_model(model, mesh, strategy)
+        tokens = distribute(specs["tokens"], step_placements(
+            "prefill", mesh, strategy, tokens=specs["tokens"])["in"][1], mesh)
+        with CommDebugMode() as comm, counter:
+            logits, cache = step(tokens)
+        places = step_placements("prefill", mesh, strategy, cache=cache)
+        got = (tuple(logits.placements), _placements(cache))
+    else:
+        model, step = make_decode_step(cfg, shape_name, device="meta",
+                                       mesh=mesh)
+        distribute_model(model, mesh, strategy)
+        places = step_placements("decode", mesh, strategy,
+                                 cache=specs["cache"],
+                                 tokens=specs["tokens"])
+        cache = place_cache(specs["cache"], mesh, strategy)
+        tokens = distribute(specs["tokens"], places["in"][2], mesh)
+        with CommDebugMode() as comm, counter:
+            logits, cache = step(cache, tokens)
+        got = (tuple(logits.placements), _placements(cache))
+    ok = got == tuple(places["out"])
+    counts = {k: int(v) for k, v in counter.counts.items()}
+    if comm.get_total_counts() != sum(counts.values()):
+        raise AssertionError(f"CommDebugMode counted "
+                             f"{comm.get_total_counts()} collectives, the "
+                             f"byte counter {counts}")
+    return {"ok": ok, "counts": counts,
+            "bytes": {k: int(v) for k, v in counter.bytes.items()}}
+
+
+def dtensor_mesh_shape(mesh_shape, strategy: str):
+    """The mesh the DTensor program runs on for ``mesh_shape``: itself,
+    but on the multi-pod mesh, where every strategy but ``tp_fsdp_inpod``
+    shards by ``pod`` and ``data`` together (``("pod", "data")`` in a
+    spec: over their product, pod-major), those two axes as one ``data``
+    axis of their product, over the same ranks in the same order. The
+    placements, and the bytes each device's collectives return, are the
+    same; a collective over both axes is one, as XLA issues it, not two
+    in a row; and DTensor plans a move over two mesh dims that shard one
+    tensor dim with a search that takes minutes a step here."""
+    names = mesh_shape.axis_names
+    if "pod" not in names or STRATEGIES[strategy].get("fsdp_in_pod"):
+        return mesh_shape
+    sizes = mesh_shape.shape
+    return MeshShape(("data", "model"),
+                     (sizes["pod"] * sizes["data"], sizes["model"]))
+
+
+def _linear(points, L):
+    """Per op type, the line through runs at two depths (``c_a + (L -
+    a)(c_b - c_a)``) at ``L`` layers; one run is the total itself."""
+    if len(points) == 1:
+        return dict(points[0][1])
+    (la, a), (lb, b) = points
+    keys = sorted(set(a) | set(b))
+    return {k: a.get(k, 0) + (L - la) * (b.get(k, 0) - a.get(k, 0))
+            // (lb - la) for k in keys}
+
+
+def spmd_record(cfg, shape_name: str, mesh_shape, strategy: str) -> dict:
+    """The SPMD fields of one record (see the module's docstring)."""
+    if cfg.family not in SPMD_FAMILIES or cfg.hybrid:
+        return {"spmd": SPMD_NOT_PORTED}
+    t = time.perf_counter()
+    depths = PROBE_LAYERS if cfg.n_layers >= PROBE_LAYERS[0] else (
+        cfg.n_layers,)
+    with fake_group():
+        mesh = fake_mesh(dtensor_mesh_shape(mesh_shape, strategy))
+        runs = [spmd_run(dataclasses.replace(cfg, n_layers=L), shape_name,
+                         mesh, strategy) for L in depths]
+    out = {field: _linear([(L, r[field]) for L, r in zip(depths, runs)],
+                          cfg.n_layers) for field in ("counts", "bytes")}
+    method = (f"runs at {' and '.join(map(str, depths))} layers, linear "
+              "in layers")
+    run_on = dtensor_mesh_shape(mesh_shape, strategy)
+    if run_on != mesh_shape:
+        method += (f"; on {'x'.join(map(str, run_on.axis_sizes))} "
+                   "(pod and data as one axis)")
+    if cfg.family == "ssm":
+        method += "; the rank-local scan stood in for on meta tensors"
+    elif input_specs(cfg, shape_name)[0] != "train":
+        method += "; the rank-local kernels' plain versions on meta tensors"
+    return {"spmd_ok": all(r["ok"] for r in runs),
+            "collective_counts": {k: out["counts"].get(k, 0)
+                                  for k in COLLECTIVES},
+            "collective_bytes": {k: out["bytes"].get(k, 0)
+                                 for k in COLLECTIVES},
+            "collective_bytes_total": sum(out["bytes"].values()),
+            "spmd_method": method,
+            "spmd_s": round(time.perf_counter() - t, 2)}
 
 
 def through(points, S):
@@ -182,9 +463,11 @@ def state_bytes(cfg, shape_name: str, mesh, strategy: str) -> int:
 
 def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
                strategy: str = "tp_fsdp", steps: dict = None,
-               verbose: bool = True) -> dict:
+               verbose: bool = True, spmd: bool = False) -> dict:
     """One record. ``steps`` caches :func:`step_record` by (arch, shape):
-    the step's run does not depend on the mesh or the strategy."""
+    the step's run does not depend on the mesh or the strategy. ``spmd``
+    adds the SPMD fields (:func:`spmd_record`; the command line does by
+    default)."""
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi_pod"))
     cfg = get_config(arch)
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -197,11 +480,16 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
     if (arch, shape_name) not in steps:
         steps[arch, shape_name] = step_record(cfg, shape_name)
     record.update(steps[arch, shape_name])
+    if spmd:
+        record.update(spmd_record(cfg, shape_name, mesh, strategy))
     if verbose:
+        coll = ("" if "spmd_ok" not in record else
+                f", spmd_ok {record['spmd_ok']}, coll/dev "
+                f"{record['collective_bytes_total']:.3e} B")
         print(f"[dryrun] {arch} × {shape_name} × {mesh_kind} ({strategy}): "
               f"flops {record['step_flops']:.3e} ({record['flops_method']}), "
               f"state/dev {record['state_bytes_per_device'] / 2**30:.2f} GiB, "
-              f"shapes_ok {record['shapes_ok']}", flush=True)
+              f"shapes_ok {record['shapes_ok']}{coll}", flush=True)
     return record
 
 
@@ -237,9 +525,10 @@ def main(argv=None) -> int:
                 if key in done:
                     continue
                 try:
-                    rec = dryrun_one(arch, shape, mesh_kind, args.strategy,
-                                     steps)
-                    if not rec["shapes_ok"]:
+                    with fake_group():
+                        rec = dryrun_one(arch, shape, mesh_kind,
+                                         args.strategy, steps, spmd=True)
+                    if not rec["shapes_ok"] or rec.get("spmd_ok") is False:
                         raise AssertionError(f"the step's outputs do not "
                                              f"match its inputs: {rec}")
                 except Exception as e:  # a row per failure, as the reference

@@ -48,7 +48,7 @@ def shape_for_long_context(cfg: ModelConfig) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig, use_kernels: bool = True,
-                device=None, remat: bool = False):
+                device=None, remat: bool = False, unroll: bool = False):
     """The model of ``cfg`` with its weights allocated on ``device``
     (uninitialised: call ``init`` or ``load_state_dict``): an
     :class:`EncDecLM` when ``cfg`` has encoder layers, else a
@@ -58,7 +58,9 @@ def build_model(cfg: ModelConfig, use_kernels: bool = True,
     on the hand-written kernels (K3 causal self attention, K4 rwkv scan,
     K5 expert products in prefill and decode); ``False`` is the
     reference's route. ``remat`` recomputes each block's activations in
-    the backward pass."""
+    the backward pass. ``unroll`` is the reference's choice between a
+    scan over the layers and an unrolled loop; the port's layers are
+    always a Python loop, so it changes nothing."""
     cls = EncDecLM if cfg.encoder_layers > 0 else DecoderLM
     return cls(cfg, use_kernels=use_kernels, device=device, remat=remat)
 

@@ -20,9 +20,11 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels._shards import is_dtensor
 from repro_torch.kernels.flash_attention import flash_attention
 
-from .common import ModelConfig, apply_rope, dense_init, head_mask
+from .common import (BATCH_AXES, ModelConfig, apply_rope, constraint_spec,
+                     dense_init, head_mask, maybe_shard)
 
 NEG_INF = -1e30
 
@@ -36,6 +38,23 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wv": dense_init(gen, d, (d, KV, dh), cfg.param_dtype),
         "wo": dense_init(gen, H * dh, (H, dh, d), cfg.param_dtype),
     }
+
+
+def _project(x, w):
+    """x [B, S, d] @ w [d, H, dh] -> [B, S, H, dh]. On a mesh the product
+    is taken flat, [B, S, H*dh], pinned as the heads are pinned (over
+    ``model`` where H divides it), then split: DTensor cannot split a flat
+    dim it sharded over more ranks than H. The flat weight keeps its
+    placements in the backward pass too (a redistribute to them brings its
+    gradient back to them), so that its gradient splits as well."""
+    if not is_dtensor(x):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    H, dh = w.shape[1], w.shape[2]
+    wf = w.flatten(1)
+    wf = wf.redistribute(wf.device_mesh, wf.placements)
+    heads = constraint_spec((H,), ("model",), x.device_mesh)[0]
+    y = maybe_shard(x @ wf, BATCH_AXES, None, heads)
+    return y.unflatten(-1, (H, dh))
 
 
 def _repeat_kv(k, n_rep):
@@ -79,9 +98,9 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
     src = kv_x if kv_x is not None else x
     Sk = src.shape[1]
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    q = _project(x, params["wq"])
+    k = _project(src, params["wk"])
+    v = _project(src, params["wv"])
     if kv_x is None:  # self attention -> rope
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -89,6 +108,11 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
         cfg.window if cfg.attn_variant == "swa" else 0)
 
     if use_flash_kernel and causal and kv_x is None:
+        # on a mesh K3 runs on each rank's heads and batch rows: the
+        # placements the einsum route pins below
+        q = maybe_shard(q, BATCH_AXES, None, "model", None)
+        k = maybe_shard(k, BATCH_AXES, None, "model", None)
+        v = maybe_shard(v, BATCH_AXES, None, "model", None)
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True, window=w)
         out = _masked_heads(out.transpose(1, 2), cfg)
@@ -96,6 +120,10 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
 
     k = _repeat_kv(k, H // KV)
     v = _repeat_kv(v, H // KV)
+    # pin head sharding (on a mesh), as the reference does
+    q = maybe_shard(q, BATCH_AXES, None, "model", None)
+    k = maybe_shard(k, BATCH_AXES, None, "model", None)
+    v = maybe_shard(v, BATCH_AXES, None, "model", None)
     # the reference divides the x.dtype scores by a float32 sqrt(dh), which
     # promotes them to float32
     scores = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(dh)
@@ -127,8 +155,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 def _write_slot(buf, slot, new):
     """``buf[:, slot] = new`` in place. A one-byte cache (float8) is written
-    through its bytes: torch has no ``index_copy_`` for float8."""
+    through its bytes: torch has no ``index_copy_`` for float8. A DTensor
+    cache may shard its slots (the sequence over ``model``): the slot is
+    selected by a mask, so each rank writes it where it lies."""
     new = new.to(buf.dtype)
+    if is_dtensor(buf):
+        C = buf.shape[1]
+        hit = (torch.arange(C, device=slot.device) == slot).reshape(1, C, 1, 1)
+        buf.copy_(torch.where(hit, new, buf))
+        return
     if buf.element_size() == 1:
         buf, new = buf.view(torch.uint8), new.view(torch.uint8)
     buf.index_copy_(1, slot, new)
@@ -158,9 +193,9 @@ def attend_decode(params, x, cache: KVCache, cfg: ModelConfig):
     C = cache.k.shape[1]
     pos = cache.length  # scalar position of the new token
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = _project(x, params["wq"])
+    k_new = _project(x, params["wk"])
+    v_new = _project(x, params["wv"])
     positions = pos.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
@@ -176,19 +211,28 @@ def attend_decode(params, x, cache: KVCache, cfg: ModelConfig):
     # batched product over (b, kv) would copy the cache). Both products
     # accumulate and return float32, as the reference's
     # preferred_element_type does, without a float32 copy of the cache.
+    # On a mesh the products are the reference's einsums over the batch
+    # (a row of a batch-sharded cache is on one rank), in float32.
     G = H // KV
+    q = maybe_shard(q, BATCH_AXES, None, None, None)
     qg = q.reshape(B, KV, G, dh)
     k_read = k.to(x.dtype) if cfg.cache_dtype is not None else k
     v_read = v.to(x.dtype) if cfg.cache_dtype is not None else v
-    kt = k_read.permute(0, 2, 3, 1)  # [B, KV, dh, C]
-    vt = v_read.permute(0, 2, 1, 3)  # [B, KV, C, dh]
-    scores = torch.stack([_bmm_f32(qg[b], kt[b]) for b in range(B)])
+    if is_dtensor(k):
+        scores = torch.einsum("bkgd,bckd->bkgc", qg.float(), k_read.float())
+    else:
+        kt = k_read.permute(0, 2, 3, 1)  # [B, KV, dh, C]
+        scores = torch.stack([_bmm_f32(qg[b], kt[b]) for b in range(B)])
     scores = scores / math.sqrt(dh)
     # mask out slots that have never been written
     valid = torch.arange(C, device=x.device) <= torch.clamp(pos, max=C - 1)
     scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.stack([_bmm_f32(p[b], vt[b]) for b in range(B)])
+    if is_dtensor(k):
+        out = torch.einsum("bkgc,bckd->bkgd", p.float(), v_read.float())
+    else:
+        vt = v_read.permute(0, 2, 1, 3)  # [B, KV, C, dh]
+        out = torch.stack([_bmm_f32(p[b], vt[b]) for b in range(B)])
     out = out.reshape(B, 1, H, dh).to(x.dtype)
     out = _masked_heads(out, cfg)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])

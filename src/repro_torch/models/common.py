@@ -5,11 +5,15 @@ of jnp ones. The layers are plain functions of tensors; the parameters of
 a model live in its ``nn.Module`` (:mod:`.transformer`), with the
 reference's shapes, so that its weights carry across as a plain copy.
 
-The reference's sharding constraints (``maybe_shard``, ``BATCH_AXES``)
-have no counterpart on one card and are left out.
+On a mesh (:func:`use_mesh`, the counterpart of JAX's ``with mesh``)
+the parameters and activations are DTensors, and :func:`maybe_shard`
+redistributes an activation to the placements the reference's
+``with_sharding_constraint`` pins there. Without a mesh it returns its
+input: the one-device route does not change.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
@@ -172,7 +176,9 @@ def rmsnorm(x, gamma, eps=1e-5):
 
 def swiglu(x, w1, w3, w2):
     """SwiGLU MLP: silu(x@w1) * (x@w3) @ w2."""
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    h = F.silu(x @ w1) * (x @ w3)
+    h = maybe_shard(h, *((BATCH_AXES,) + (None,) * (h.ndim - 2) + ("model",)))
+    return h @ w2
 
 
 def rope_freqs(d_head: int, theta: float):
@@ -215,12 +221,116 @@ def head_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
     return m
 
 
+# ---------------------------------------------------------------------------
+# activation sharding constraints
+#
+# The reference pins activation shardings explicitly (GSPMD alone
+# replicated the attention and FFN inner dims on the model axis); a pin
+# applies only under an ambient mesh with the named axes, so the same model
+# code runs unsharded on one device.
+
+BATCH_AXES = "__batch__"  # role: ('pod','data') when pod exists, else 'data'
+
+# the meshes of the open use_mesh scopes, innermost last: process-wide, not
+# per thread, since autograd runs a CUDA backward (and remat's
+# recomputation in it) on a thread of its own
+_MESHES = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the model on ``mesh`` (a ``DeviceMesh`` with named dims, or
+    ``None``: no mesh, the one-device route). Under it, plain tensors that
+    meet DTensors (positions, masks, freshly made buffers) count as
+    replicated."""
+    if mesh is None:
+        yield None
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESHES.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def _ambient_mesh():
+    """The mesh of the innermost :func:`use_mesh`, or ``None``."""
+    return _MESHES[-1] if _MESHES else None
+
+
+def spec_placements(spec, mesh):
+    """A spec (one entry per dim: ``None``, an axis name or a tuple of
+    them) as DTensor placements on ``mesh``, one per mesh dim: ``Shard(d)``
+    where dim ``d``'s entry names that axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in mesh_axis_names(mesh):
+        dims = [d for d, e in enumerate(spec)
+                if axis == e or (isinstance(e, tuple) and axis in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def mesh_axis_names(mesh):
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def constraint_spec(shape, entries, mesh):
+    """The reference's ``maybe_shard`` rules: ``BATCH_AXES`` is ('pod',
+    'data') or 'data', an axis the mesh lacks is skipped, and a dim is
+    sharded only where its size divides the axes' product."""
+    names = mesh_axis_names(mesh)
+    sizes = dict(zip(names, tuple(mesh.shape)))
+    spec = []
+    for d, entry in enumerate(entries):
+        if entry == BATCH_AXES:
+            entry = tuple(a for a in ("pod", "data") if a in names) or None
+        if entry is None:
+            spec.append(None)
+            continue
+        axes = tuple(a for a in (entry if isinstance(entry, tuple)
+                                 else (entry,)) if a in names)
+        size = int(np.prod([sizes[a] for a in axes])) if axes else 1
+        if size <= 1 or shape[d] % size != 0:
+            spec.append(None)
+        else:
+            spec.append(axes if len(axes) > 1 else axes[0])
+    return tuple(spec)
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a DTensor of ``mesh``: a plain tensor counts as
+    replicated, as under ``use_mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def maybe_shard(x, *entries):
+    """The reference's ``with_sharding_constraint`` guarded by an ambient
+    mesh, the axis names it has and the divisibility of each dim: on a
+    mesh, ``x`` redistributed to the placements of ``entries`` (a ``None``
+    entry, or one that does not apply, replicates that dim); without one,
+    ``x`` itself."""
+    mesh = _ambient_mesh()
+    if mesh is None or x is None:
+        return x
+    spec = constraint_spec(x.shape, entries, mesh)
+    return as_dtensor(x, mesh).redistribute(mesh, spec_placements(spec, mesh))
+
+
 def cross_entropy_loss(logits, labels, mask=None):
     """Mean token-level cross entropy. logits [..., V] cast to float32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()

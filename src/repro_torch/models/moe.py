@@ -1,7 +1,6 @@
 """Mixture-of-Experts layer: top-k router + capacity-bounded expert products.
 
-A copy of ``repro/models/moe.py`` in PyTorch, without its sharding
-constraints (one device). Tokens are sorted by expert id and packed into a
+A copy of ``repro/models/moe.py`` in PyTorch. Tokens are sorted by expert id and packed into a
 fixed-capacity buffer, the experts run as one batched SwiGLU, and the
 outputs are gathered back weighted by the router's gates. Tokens beyond
 an expert's capacity are dropped (Switch/GShard semantics).
@@ -25,15 +24,27 @@ The grouped dispatch packs expert-major, [E, G, C, d] (slot
 ``e*G*C + g*C + rank``) where the reference packs [G, E, C, d], so that the
 expert products read [E, G*C, d] without a copy; each slot holds the same
 row either way.
+
+On a mesh (:func:`.common.use_mesh`) the reference's constraints apply at
+its sites, in the port's layout: the groups over the data axes, the
+buffer's experts over ``model`` (its [E, G*C] rows over the data axes),
+the experts' hidden activations over ``model`` by experts where ``E %
+16 == 0``, else by their hidden dim. Each group lives on one data shard,
+so the scatter into the buffer and the gather back run rank-local
+(``local_map``, on the groups' placements); a flat (decode) dispatch packs
+all tokens, replicated. K5 takes the buffer and the weights on the
+placements of the products (:func:`_experts`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.moe_gemm import moe_gemm
 
-from .common import ModelConfig, dense_init
+from .common import (BATCH_AXES, ModelConfig, _ambient_mesh, as_dtensor,
+                     dense_init, maybe_shard)
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:
@@ -112,14 +123,35 @@ def _slots(flat_e, C: int):
     return sort, sorted_e, rank, rank < C
 
 
-def _experts(buf, params, use_kernels: bool):
-    """SwiGLU of every expert over its rows: buf [E, N, d] -> [E, N, d]."""
+def _experts(buf, params, use_kernels: bool, pin_out: bool = True):
+    """SwiGLU of every expert over its rows: buf [E, N, d] -> [E, N, d].
+    On a mesh: the buffer's experts over ``model`` and its rows over the
+    data axes; the hidden activations over ``model`` by experts where ``E
+    % 16 == 0``, else by their hidden dim; the output as the buffer
+    (``pin_out``, the grouped dispatch). K5 takes the weights gathered over
+    the data axes, sharded as its products: by experts, or w1/w3 by their
+    columns and w2 by its rows (a partial sum)."""
+    E = buf.shape[0]
+    ep = E % 16 == 0
+    buf = maybe_shard(buf, "model", BATCH_AXES, None)
     if use_kernels:
-        h = F.silu(moe_gemm(buf, params["w1"])) * moe_gemm(buf, params["w3"])
-        return moe_gemm(h, params["w2"])
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["w1"]))
-    h = h * torch.einsum("ecd,edf->ecf", buf, params["w3"])
-    return torch.einsum("ecf,efd->ecd", h, params["w2"])
+        w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+        if _ambient_mesh() is not None:
+            buf = maybe_shard(buf, "model" if ep else None, BATCH_AXES, None)
+            w1, w3 = (maybe_shard(w, "model", None, None) if ep
+                      else maybe_shard(w, None, None, "model")
+                      for w in (w1, w3))
+            w2 = maybe_shard(w2, "model" if ep else None,
+                             None if ep else "model", None)
+        h = F.silu(moe_gemm(buf, w1)) * moe_gemm(buf, w3)
+    else:
+        h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["w1"]))
+        h = h * torch.einsum("ecd,edf->ecf", buf, params["w3"])
+    h = maybe_shard(h, "model", BATCH_AXES, None) if ep else \
+        maybe_shard(h, None, BATCH_AXES, "model")
+    out = moe_gemm(h, w2) if use_kernels else \
+        torch.einsum("ecf,efd->ecd", h, params["w2"])
+    return maybe_shard(out, "model", BATCH_AXES, None) if pin_out else out
 
 
 def _unsort(sort, v):
@@ -135,79 +167,169 @@ def _shared(params, xt):
 def _aux(probs, idx, keep, cfg: ModelConfig, T: int):
     E, K = cfg.n_experts, cfg.top_k
     me = probs.reshape(-1, E).mean(0)
-    flat = idx.reshape(-1)
-    # tokens per expert (bincount, which has no meta-device kernel)
-    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
-    ce = counts.index_add_(0, flat, torch.ones_like(flat)).float() / (T * K)
+    # tokens per expert (bincount, which has no meta-device kernel); on a
+    # mesh each rank counts its own assignments, summed over the ranks
+    # that hold different ones
+    ce = _on_groups(_expert_counts(E), idx, partial=True).float() / (T * K)
     return {"lb_loss": E * torch.sum(me * ce),
             "dropped": 1.0 - keep.float().mean()}
+
+
+def _expert_counts(E: int):
+    def counts(idx):
+        flat = idx.reshape(-1)
+        out = torch.zeros(E, dtype=torch.int64, device=flat.device)
+        return out.index_add_(0, flat, torch.ones_like(flat))
+    return counts
+
+
+def _on_groups(fn, *args, out=None, partial=False):
+    """``fn(*args)`` of the dispatch, rank-local on a mesh. The first
+    argument sets the placements: each output is sharded as it, on the dims
+    ``out`` names (one entry per output: the dim its groups lie on), or is
+    a sum over its shards (``partial``: one output, replicated
+    elsewhere). Without a mesh, ``fn(*args)``."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = args[0].placements
+
+    def place(dim):
+        return tuple(Shard(dim) if isinstance(p, Shard) else Replicate()
+                     for p in pl)
+
+    if partial:
+        outs = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                     for p in pl)
+    else:
+        outs = tuple(place(d) for d in out)
+    return on_shards(fn, outs, *args)
+
+
+def _like(t, ref):
+    """``t`` on ``ref``'s placements (on a mesh)."""
+    if not is_dtensor(ref):
+        return t
+    return as_dtensor(t, ref.device_mesh).redistribute(ref.device_mesh,
+                                                       ref.placements)
 
 
 def moe_ffn_grouped(params, x, cfg: ModelConfig, use_kernels: bool = False):
     """GShard-style grouped dispatch: each group of Tg tokens has its own
     capacity C per expert. The buffer is packed expert-major, [E, G, C, d],
-    and the experts read it as [E, G*C, d]."""
+    and the experts read it as [E, G*C, d]. On a mesh the groups lie on the
+    data axes and each rank packs and combines its own."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     G = _pick_groups(T)
     Tg = T // G
-    xt = x.reshape(G, Tg, d)
+    xt = maybe_shard(x.reshape(G, Tg, d), BATCH_AXES, None, None)
     probs, gate, idx = _route(xt, params["router"], K)       # [G, Tg, ·]
     C = expert_capacity(Tg, cfg)
+    idx, gate = _like(idx, xt), _like(gate, xt)
 
-    sort, sorted_e, rank, keep = _slots(idx.reshape(G, Tg * K), C)
-    grp = torch.arange(G, device=x.device)[:, None]
-    dest = torch.where(keep, sorted_e * (G * C) + grp * C + rank, E * G * C)
-    token = grp * Tg + torch.div(sort, K, rounding_mode="floor")
-    buf = x.new_zeros((E * G * C + 1, d))                    # + the drop row
-    buf.index_copy_(0, dest.reshape(-1), x.reshape(T, d)[token.reshape(-1)])
-    out = _experts(buf[:-1].view(E, G * C, d), params, use_kernels)
-    out = out.reshape(E * G * C, d)
-
-    # combine, in assignment order [T, K]: gate * keep, cast to the
-    # activation dtype before the product, as the reference does
-    dest_u = _unsort(sort, dest).reshape(T * K)
-    keep_u = _unsort(sort, keep).reshape(T * K)
-    gathered = torch.where(keep_u[:, None],
-                           out[dest_u.clamp(max=E * G * C - 1)], 0)
-    w = (gate.reshape(T * K) * keep_u.float())[:, None]
-    contrib = (gathered * w.to(out.dtype)).view(T, K, d)
-    y = _sum_k(contrib).to(x.dtype)
+    sort, sorted_e, rank, keep = _on_groups(
+        lambda i: _slots(i.reshape(i.shape[0], Tg * K), C), idx,
+        out=(0, 0, 0, 0))
+    buf, dest = _on_groups(_pack_grouped(E, C, K), xt, sort, sorted_e, rank,
+                           keep, out=(1, 0))
+    out = _experts(buf, params, use_kernels)
+    y = _on_groups(_combine_grouped(K), _like(out, buf), sort, dest, keep,
+                   gate, out=(0,))
+    y = maybe_shard(y, BATCH_AXES, None, None).reshape(T, d).to(x.dtype)
 
     if cfg.n_shared_experts:
         y = y + _shared(params, x.reshape(T, d))
     return y.reshape(B, S, d), _aux(probs, idx, keep, cfg, T)
 
 
+def _pack_grouped(E: int, C: int, K: int):
+    def pack(xt, sort, sorted_e, rank, keep):
+        """xt [G, Tg, d] -> the buffer [E, G*C, d] and each sorted
+        assignment's slot (``E*G*C``, the drop row, where not kept)."""
+        G, Tg, d = xt.shape
+        grp = torch.arange(G, device=xt.device)[:, None]
+        dest = torch.where(keep, sorted_e * (G * C) + grp * C + rank,
+                           E * G * C)
+        token = grp * Tg + torch.div(sort, K, rounding_mode="floor")
+        buf = xt.new_zeros((E * G * C + 1, d))               # + the drop row
+        buf.index_copy_(0, dest.reshape(-1),
+                        xt.reshape(G * Tg, d)[token.reshape(-1)])
+        return buf[:-1].view(E, G * C, d), dest
+    return pack
+
+
+def _combine_grouped(K: int):
+    def combine(out, sort, dest, keep, gate):
+        """The experts' rows back to their tokens, in assignment order [T,
+        K]: gate * keep, cast to the activation dtype before the product,
+        as the reference does. -> [G, Tg, d]."""
+        E, GC, d = out.shape
+        G, Tg = gate.shape[:2]
+        T = G * Tg
+        out = out.reshape(E * GC, d)
+        dest_u = _unsort(sort, dest).reshape(T * K)
+        keep_u = _unsort(sort, keep).reshape(T * K)
+        gathered = torch.where(keep_u[:, None],
+                               out[dest_u.clamp(max=E * GC - 1)], 0)
+        w = (gate.reshape(T * K) * keep_u.float())[:, None]
+        contrib = (gathered * w.to(out.dtype)).view(T, K, d)
+        return _sum_k(contrib).view(G, Tg, d)
+    return combine
+
+
 def moe_ffn_flat(params, x, cfg: ModelConfig, use_kernels: bool = False):
-    """Single global capacity buffer [E, C, d]."""
+    """Single global capacity buffer [E, C, d]. On a mesh every rank packs
+    all tokens (replicated) and the buffer's rows go over the data axes."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, d)
+    mesh = _ambient_mesh()
+    if mesh is not None:
+        xt = maybe_shard(xt, None, None)
     probs, gate, idx = _route(xt, params["router"], K)       # [T, ·]
     C = expert_capacity(T, cfg)
+    if mesh is not None:
+        idx, gate = _like(idx, xt), _like(gate, xt)
 
-    sort, sorted_e, rank, keep = _slots(idx.reshape(T * K), C)
-    dest = torch.where(keep, sorted_e * C + rank, E * C)
-    token = torch.div(sort, K, rounding_mode="floor")
-    buf = x.new_zeros((E * C + 1, d))                        # + the drop row
-    buf.index_copy_(0, dest, xt[token])
-    out = _experts(buf[:-1].view(E, C, d), params, use_kernels)
-    out = out.reshape(E * C, d)
-
-    # combine, in assignment order [T, K]: the product in float32 (gate *
-    # keep), cast to the activation dtype, as the reference does
-    dest_u, keep_u = _unsort(sort, dest), _unsort(sort, keep)
-    gathered = torch.where(keep_u[:, None], out[dest_u.clamp(max=E * C - 1)],
-                           0)
-    w = (gate.reshape(T * K) * keep_u.to(gate.dtype))[:, None]
-    y = _sum_k((gathered * w).to(x.dtype).view(T, K, d))
+    sort, sorted_e, rank, keep = _on_groups(
+        lambda i: _slots(i.reshape(T * K), C), idx, out=(0, 0, 0, 0))
+    buf, dest = _on_groups(_pack_flat(E, C, K), xt, sort, sorted_e, rank,
+                           keep, out=(0, 0))
+    out = _experts(buf, params, use_kernels, pin_out=False)
+    y = _on_groups(_combine_flat(K), _like(out, buf), sort, dest, keep, gate,
+                   out=(0,))
 
     if cfg.n_shared_experts:
         y = y + _shared(params, xt)
     return y.reshape(B, S, d), _aux(probs, idx, keep, cfg, T)
+
+
+def _pack_flat(E: int, C: int, K: int):
+    def pack(xt, sort, sorted_e, rank, keep):
+        dest = torch.where(keep, sorted_e * C + rank, E * C)
+        token = torch.div(sort, K, rounding_mode="floor")
+        buf = xt.new_zeros((E * C + 1, xt.shape[1]))         # + the drop row
+        buf.index_copy_(0, dest, xt[token])
+        return buf[:-1].view(E, C, xt.shape[1]), dest
+    return pack
+
+
+def _combine_flat(K: int):
+    def combine(out, sort, dest, keep, gate):
+        """In assignment order [T, K]: the product in float32 (gate *
+        keep), cast to the activation dtype, as the reference does."""
+        E, C, d = out.shape
+        T = gate.shape[0]
+        out = out.reshape(E * C, d)
+        dest_u, keep_u = _unsort(sort, dest), _unsort(sort, keep)
+        gathered = torch.where(keep_u[:, None],
+                               out[dest_u.clamp(max=E * C - 1)], 0)
+        w = (gate.reshape(T * K) * keep_u.to(gate.dtype))[:, None]
+        return _sum_k((gathered * w).to(out.dtype).view(T, K, d))
+    return combine
 
 
 def _sum_k(contrib):

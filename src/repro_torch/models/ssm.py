@@ -29,9 +29,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv_scan import rwkv_scan, rwkv_scan_plain
+from repro_torch.kernels._shards import is_dtensor
+from repro_torch.kernels.rwkv_scan import (on_mesh, rwkv_scan, rwkv_scan_plain,
+                                           u_like)
 
-from .common import ModelConfig, dense_init
+from .common import BATCH_AXES, ModelConfig, dense_init, maybe_shard
 
 LORA_DIM = 32
 
@@ -41,7 +43,11 @@ def _heads(cfg: ModelConfig):
 
 
 def token_shift(x):
-    """x delayed by one position, zero first: [B,S,d] -> [B,S,d]."""
+    """x delayed by one position, zero first: [B,S,d] -> [B,S,d]. A
+    DTensor's shift is a concatenation: torch 2.11's DTensor pads one
+    into a malformed spec (one placement on a 2-d mesh)."""
+    if is_dtensor(x):
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
@@ -76,7 +82,7 @@ def _rwkv_inputs(params, x, x_prev, cfg: ModelConfig):
                          params["shift_lora_b"])  # [B,S,5,d]
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (params["mu"][None, None]
                                                      + delta)
-    xr, xk, xv, xw, xg = mixed.unbind(2)
+    xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
 
     B, S = x.shape[:2]
     r = (xr @ params["wr"]).reshape(B, S, H, dh)
@@ -86,6 +92,10 @@ def _rwkv_inputs(params, x, x_prev, cfg: ModelConfig):
     w_logit = params["w0"] + torch.tanh(xw @ params["w_lora_a"]) \
         @ params["w_lora_b"]
     w = torch.exp(-torch.exp(w_logit.float())).reshape(B, S, H, dh)
+    r = maybe_shard(r, BATCH_AXES, None, "model", None)
+    k = maybe_shard(k, BATCH_AXES, None, "model", None)
+    v = maybe_shard(v, BATCH_AXES, None, "model", None)
+    w = maybe_shard(w, BATCH_AXES, None, "model", None)
     return r, k, v, w, g
 
 
@@ -113,8 +123,15 @@ def rwkv_time_mix_scan(params, x, cfg: ModelConfig, use_kernel: bool):
     (bf16 -> float32 is exact), the plain route casts them first."""
     r, k, v, w, g = _rwkv_inputs(params, x, token_shift(x), cfg)
     u = params["u"].float()
+    if is_dtensor(r):
+        # each rank scans its streams: the batch rows and heads r, k, v and
+        # w are pinned to
+        u = u_like(u, r)
     if use_kernel:
         wkv, state = rwkv_scan(r, k, v, w, u, return_state=True)
+    elif is_dtensor(r):
+        wkv, state = on_mesh(rwkv_recurrence, r.float(), k.float(),
+                             v.float(), w, u)
     else:
         wkv, state = rwkv_recurrence(r.float(), k.float(), v.float(), w, u)
     return _rwkv_out(params, wkv.to(x.dtype), g, cfg), state
@@ -168,6 +185,7 @@ def init_rwkv_cm_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def rwkv_channel_mix(params, x, x_prev):
     xk = x + (x_prev - x) * params["mu_k"]
     h = torch.square(F.relu(xk @ params["wk"]))
+    h = maybe_shard(h, BATCH_AXES, None, "model")
     return h @ params["wv"]
 
 

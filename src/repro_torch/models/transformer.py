@@ -42,8 +42,8 @@ from ..device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (ModelConfig, cross_entropy_loss, dense_init, embed_init,
-                     rmsnorm, swiglu, vocab_mask)
+from .common import (BATCH_AXES, ModelConfig, cross_entropy_loss, dense_init,
+                     embed_init, maybe_shard, rmsnorm, swiglu, vocab_mask)
 
 # ---------------------------------------------------------------------------
 # per-layer parameters
@@ -209,8 +209,8 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
 def _project_kv(ap, x, cfg: ModelConfig):
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None, :]
-    k = torch.einsum("bsd,dhk->bshk", x, ap["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
+    k = attn._project(x, ap["wk"])
+    v = attn._project(x, ap["wv"])
     k = attn.apply_rope(k, pos, cfg.rope_theta)
     if cfg.attn_variant == "swa":
         k, v = k[:, -cfg.window:], v[:, -cfg.window:]
@@ -472,7 +472,8 @@ class DecoderLM(nn.Module):
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return _head_logits(x, head, self.cfg)
+        return maybe_shard(_head_logits(x, head, self.cfg), BATCH_AXES, None,
+                           "model")
 
     # -- training --------------------------------------------------------
     def loss(self, batch):

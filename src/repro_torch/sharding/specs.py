@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.common import spec_placements
 from repro_torch.models.convert import (from_reference_layout,
                                         layer_counts, params_to_reference)
 from repro_torch.tree import leaves_with_path, map_with_path
@@ -69,6 +70,13 @@ class MeshShape:
     @property
     def size(self) -> int:
         return int(np.prod(self.axis_sizes))
+
+
+def make_abstract_mesh(axis_sizes, axis_names) -> MeshShape:
+    """The reference's ``make_abstract_mesh``: a mesh's axis sizes and
+    names with no devices behind it, for the specs and the accounting."""
+    assert len(axis_sizes) == len(axis_names)
+    return MeshShape(tuple(axis_names), tuple(axis_sizes))
 
 
 def mesh_shape(mesh) -> MeshShape:
@@ -279,18 +287,46 @@ def tree_placements(spec_tree, mesh):
     """Each spec of ``spec_tree`` as DTensor placements on ``mesh``, one
     per mesh dim: ``Shard(d)`` where tensor dim ``d``'s entry names that
     axis, else ``Replicate()``."""
-    from torch.distributed.tensor import Replicate, Shard
-    names = mesh_shape(mesh).axis_names
+    return _map(lambda _, spec: spec_placements(spec, mesh), spec_tree)
 
-    def one(_, spec):
-        out = []
-        for axis in names:
-            dims = [d for d, e in enumerate(spec)
-                    if axis == e or (isinstance(e, tuple) and axis in e)]
-            out.append(Shard(dims[0]) if dims else Replicate())
-        return tuple(out)
 
-    return _map(one, spec_tree)
+def step_placements(kind: str, mesh, strategy: str = "tp_fsdp", *,
+                    params=None, opt_state=None, batch=None, tokens=None,
+                    cache=None) -> dict:
+    """The in- and out-placements of a step on ``mesh`` under
+    ``strategy``, as the reference's ``jax.jit`` of it takes them
+    (``in_shardings``, ``out_shardings`` of its ``tree_shardings``):
+    ``{"in": (...), "out": (...)}`` of placements trees. ``params``,
+    ``opt_state`` (the port's names), ``batch``, ``tokens`` and ``cache``
+    are anything with shapes; one left out has ``None`` in its places.
+
+    * train: in (params, opt_state, batch), out (params, opt_state, the
+      loss replicated);
+    * prefill: in (params, tokens), out (the logits replicated, the cache
+      of ``cache_specs``; its sequence over ``model`` unless the strategy
+      says otherwise);
+    * decode: in (params, cache, tokens), out (the logits replicated, the
+      cache)."""
+    skw = STRATEGIES[strategy]
+
+    def placed(tree, specs):
+        return None if tree is None else tree_placements(specs(tree), mesh)
+
+    def state(tree):
+        return port_param_specs(tree, mesh, **skw)
+
+    pl = placed(params, state)
+    rep = spec_placements(P(), mesh)
+    if kind == "train":
+        ol = placed(opt_state, state)
+        return {"in": (pl, ol, placed(batch, lambda b: batch_specs(b, mesh))),
+                "out": (pl, ol, rep)}
+    cl = placed(cache, lambda c: cache_specs(
+        c, mesh, seq_over_model=skw.get("seq_over_model", True)))
+    tl = placed(tokens, lambda b: batch_specs(b, mesh))
+    if kind == "prefill":
+        return {"in": (pl, tl), "out": (rep, cl)}
+    return {"in": (pl, cl, tl), "out": (rep, cl)}
 
 
 def sharded_bytes(struct, spec_tree, mesh) -> int:

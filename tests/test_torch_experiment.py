@@ -157,7 +157,9 @@ def test_port_imports_neither_jax_nor_reference():
         "          'repro_torch.launch.train', 'repro_torch.launch.dryrun',\n"
         "          'repro_torch.configs.llava_next_34b',\n"
         "          'repro_torch.configs.seamless_m4t_large_v2',\n"
-        "          'repro_torch.launch.inference_demo'):\n"
+        "          'repro_torch.launch.inference_demo',\n"
+        "          'repro_torch.launch.serve',\n"
+        "          'repro_torch.kernels._shards'):\n"
         "    assert m in sys.modules, m\n"
         "print(repr(bad))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -10,8 +10,8 @@ the train driver, the dry run) against the JAX package's, on the CPU.
   reference's ``make_train_step`` (losses within ``TOL``, parameters by
   ``STEP_RHO``: see the test), and remat on equal to remat off bit for
   bit.
-* The step on DTensor state on a gloo 1×1 mesh (``make_host_mesh``)
-  equals the step on plain tensors bit for bit.
+* The train step as a DTensor program on the gloo 1×1 mesh of
+  ``fit_mesh`` equals the step on plain tensors bit for bit.
 * ``make_prefill_step``/``make_decode_step`` (the kernel route: K3, K4 and
   K5 run their plain versions on the CPU) against the reference's
   factories: the prefill's logits and two decode steps within ``TOL``.
@@ -41,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro.configs import all_archs as ref_all_archs
 from repro.configs import get_config as ref_get_config
@@ -58,13 +58,11 @@ from repro.sharding import param_specs as ref_param_specs
 from repro.sharding.specs import _axis_size as ref_axis_size
 from repro_torch.configs import all_archs, get_config
 from repro_torch.launch import dryrun, steps, train
-from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import SHAPES, DecoderLM, EncDecLM, input_specs
 from repro_torch.models.convert import (model_config_from_reference,
                                         params_from_reference)
 from repro_torch.optim import Optimizer, adamw
-from repro_torch.sharding import (batch_specs, port_param_specs,
-                                  tree_placements)
+from repro_torch.sharding import step_placements
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # a step's gradients against the reference's, relative to each tensor's
@@ -94,7 +92,7 @@ def _two_torch_threads():
 @pytest.fixture
 def own_process_group():
     """Ends a process group that the test started (the driver and
-    ``make_host_mesh`` start one of world size 1 where none exists)."""
+    ``fit_mesh`` start one of world size 1 where none exists)."""
     assert not dist.is_initialized()
     yield
     if dist.is_initialized():
@@ -236,31 +234,37 @@ def test_default_optimizer_matches_reference():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_step_on_dtensors_equals_plain(arch, own_process_group):
+    """The train step as a DTensor program (``make_train_step(...,
+    mesh=)``) on the 1×1 gloo mesh of ``fit_mesh`` (one process) against
+    the plain step, two AdamW steps: the loss comes out replicated, the
+    parameters and state stay DTensors on their placements, and every
+    value equals the plain step's bit for bit."""
     cfg, params = _ref(arch)
+    port_cfg = model_config_from_reference(cfg)
     _, opt, step = steps.make_train_step(
-        model_config_from_reference(cfg), adamw(1e-3, weight_decay=0.1),
-        remat=True, device="cpu")
-    mesh = make_host_mesh("cpu")
+        port_cfg, adamw(1e-3, weight_decay=0.1), remat=True, device="cpu")
+    mesh = train.fit_mesh("cpu")
     assert dist.get_backend() == "gloo" and mesh.mesh_dim_names == (
         "data", "model") and tuple(mesh.shape) == (1, 1)
+    _, _, mesh_step = steps.make_train_step(
+        port_cfg, adamw(1e-3, weight_decay=0.1), remat=True, device="cpu",
+        mesh=mesh)
     plain = _port_params(params)
     plain_s = opt.init(plain)
-    placements = {"params": tree_placements(port_param_specs(plain, mesh),
-                                            mesh),
-                  "opt_state": tree_placements(
-                      port_param_specs(plain_s, mesh), mesh)}
-    p = train.distribute(_port_params(params), placements["params"], mesh)
-    s = train.distribute(opt.init(plain), placements["opt_state"], mesh)
+    batches = [_torch_batch(b) for b in _batches(cfg.vocab, 2)]
+    pl, ol, bpl = step_placements("train", mesh, params=plain,
+                                  opt_state=plain_s, batch=batches[0])["in"]
+    p = train.distribute(_port_params(params), pl, mesh)
+    s = train.distribute(opt.init(plain), ol, mesh)
     assert isinstance(p["embed"], DTensor)
-    for b in _batches(cfg.vocab, 2):
-        tb = _torch_batch(b)
+    for tb in batches:
         plain, plain_s, want = step(plain, plain_s, tb)
-        bt = train.distribute(tb, tree_placements(batch_specs(tb, mesh),
-                                                  mesh), mesh)
-        p, s, loss = train.step_on_local(step, mesh, p, s, bt, placements)
-        assert torch.equal(loss, want)
-    assert all(isinstance(t, DTensor) for t in p.values())
-    got_p, got_s = train.local(p), train.local(s)
+        p, s, loss = mesh_step(p, s, train.distribute(tb, bpl, mesh))
+        assert tuple(loss.placements) == (Replicate(), Replicate())
+        assert torch.equal(loss.full_tensor(), want)
+    assert all(isinstance(t, DTensor) and t.placements == pl[n]
+               for n, t in p.items())
+    got_p, got_s = train.gather(p), train.gather(s)
     assert all(torch.equal(got_p[n], plain[n]) for n in plain)
     for k in ("m", "v"):
         assert all(torch.equal(got_s[k][n], plain_s[k][n]) for n in plain)

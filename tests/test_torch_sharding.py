@@ -37,9 +37,11 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import default_optimizer
 from repro_torch.models import params_spec
 from repro_torch.models.convert import torch_dtype
+from repro_torch.models.common import spec_placements
 from repro_torch.sharding import (STRATEGIES, MeshShape, PartitionSpec,
                                   batch_specs, cache_specs, param_specs,
-                                  port_param_specs, tree_placements)
+                                  port_param_specs, step_placements,
+                                  tree_placements)
 from repro_torch.sharding.specs import _layer_spec
 
 MESHES = {"1x1": (("data", "model"), (1, 1)),
@@ -181,6 +183,57 @@ def test_tree_placements():
     params = params_spec(get_config("smollm-360m"))
     assert all(p == (Replicate(), Replicate()) for p in tree_placements(
         port_param_specs(params, host), host).values())
+
+
+@pytest.mark.parametrize("strategy", list(REF_STRATEGIES))
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+def test_step_placements_are_the_reference_specs(arch, strategy):
+    """The in- and out-placements of each step kind: the parameters and
+    the optimizer state under the strategy's specs, the tokens and the
+    batch under the reference's ``batch_specs``, the cache under its
+    ``cache_specs`` (the sequence over ``model`` unless the strategy says
+    otherwise), the logits and the loss replicated."""
+    ref_mesh, mesh = _meshes("16x16")
+    skw = STRATEGIES[strategy]
+    inputs = _structs(arch)[2]
+    pp = params_spec(get_config(arch))
+    ps = default_optimizer(get_config(arch)).init(pp)
+    tokens = inputs["decode_32k"]["tokens"]
+    cache = inputs["decode_32k"]["cache"]
+    batch = inputs["train_4k"]["batch"]
+
+    def ref(spec_tree):
+        return [spec_placements(s, mesh) for s in _leaves(spec_tree)]
+
+    def got(tree):
+        return jax.tree_util.tree_leaves(
+            tree, is_leaf=lambda x: isinstance(x, tuple) and all(
+                isinstance(p, (Shard, Replicate)) for p in x))
+
+    rep = (Replicate(), Replicate())
+    want_params = tree_placements(port_param_specs(pp, mesh, **skw), mesh)
+    want_cache = ref(ref_cache_specs(cache, ref_mesh, seq_over_model=skw.get(
+        "seq_over_model", True)))
+    want_tokens = ref(ref_batch_specs(tokens, ref_mesh))
+    train = step_placements("train", mesh, strategy, params=pp,
+                            opt_state=ps, batch=_to_meta(batch))
+    assert train["in"][0] == want_params == train["out"][0]
+    assert train["in"][1] == tree_placements(
+        port_param_specs(ps, mesh, **skw), mesh) == train["out"][1]
+    assert got(train["in"][2]) == ref(ref_batch_specs(batch, ref_mesh))
+    assert train["out"][2] == rep
+    prefill = step_placements("prefill", mesh, strategy, params=pp,
+                              tokens=_to_meta(tokens), cache=_to_meta(cache))
+    decode = step_placements("decode", mesh, strategy, params=pp,
+                             tokens=_to_meta(tokens), cache=_to_meta(cache))
+    assert prefill["in"][0] == decode["in"][0] == want_params
+    assert [prefill["in"][1]] == [decode["in"][2]] == want_tokens
+    assert got(prefill["out"][1]) == got(decode["in"][1]) == \
+        got(decode["out"][1]) == want_cache
+    assert prefill["out"][0] == decode["out"][0] == rep
+    # an argument left out has None in its places
+    assert step_placements("decode", mesh, strategy,
+                           cache=_to_meta(cache))["in"][0::2] == (None, None)
 
 
 def test_layer_dim_is_never_sharded():

@@ -1,0 +1,34 @@
+"""The dry run's SPMD fields for the train step
+(``repro_torch.launch.dryrun.spmd_record``): one arch of each family of
+the slice (dense smollm-360m, moe mixtral-8x22b, ssm rwkv6-1.6b) at
+``train_4k`` as a DTensor program on torch's fake process group over
+16×16 and 2×16×16 under ``tp_fsdp``, on meta tensors: ``spmd_ok``, and
+the collectives of ZeRO-3 with tensor parallelism (parameters gathered,
+gradients reduce-scattered) filled for the reference's five op types.
+The other records are tests/test_torch_spmd_dryrun.py's.
+"""
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+
+TRAIN_ARCHS = ("smollm-360m", "mixtral-8x22b", "rwkv6-1.6b")
+MESHES = ("single_pod", "multi_pod")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_spmd_ok_train_step_on_both_meshes(arch):
+    for mesh_kind in MESHES:
+        rec = dryrun.spmd_record(get_config(arch), "train_4k",
+                                 make_production_mesh(
+                                     multi_pod=mesh_kind == "multi_pod"),
+                                 "tp_fsdp")
+        assert rec["spmd_ok"] is True, rec
+        assert tuple(rec["collective_counts"]) == dryrun.COLLECTIVES
+        assert tuple(rec["collective_bytes"]) == dryrun.COLLECTIVES
+        assert rec["collective_bytes_total"] == sum(
+            rec["collective_bytes"].values()) > 0
+        # ZeRO-3 in a train step: parameters gathered, gradients scattered
+        assert rec["collective_counts"]["all-gather"] > 0
+        assert rec["collective_counts"]["reduce-scatter"] > 0

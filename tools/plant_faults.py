@@ -10,7 +10,12 @@ For each fault it copies ``src/`` and ``chip_smoke.py`` into
 the copy,
 runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
 touches (the copy builds its own kernels), and prints, as one JSON line
-per run, what the checks read: the kernel lines' errors, the rwkv line's
+per run, what the checks read. The phase ``spmd_cpu`` runs on the CPU
+instead: the two programs of ``tests/test_torch_spmd.py`` (the
+reference's sharded step on four forced host devices, the port's on four
+gloo ranks) in the copy, and every one of that file's readings, over its
+limit (``--faults sound_spmd`` plants nothing, for the sound readings).
+What ``chip_smoke.py`` reads: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
 card-against-CPU parity, the vlm and encdec lines' route, decode and
@@ -164,14 +169,31 @@ FAULTS = {
         "        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order",
         "        x = (x if x.is_cuda else x.permute(0, 2, 3, 1)).reshape("
         "x.shape[0], -1)", ("train",)),
+    # the sharded train step (launch/steps.py, a DTensor program), held on
+    # the CPU to the reference's sharded step and to the port's 1×1 step
+    # (tests/test_torch_spmd.py, four gloo ranks; phase "spmd_cpu"): each
+    # gradient's partial sums over the data axes taken as the whole
+    "spmd_grad_not_reduced_over_data": (
+        "src/repro_torch/launch/steps.py",
+        "    return grad.redistribute(grad.device_mesh, placements)\n",
+        "    from torch.distributed.tensor import DTensor, Partial, Replicate\n"
+        "    grad = DTensor.from_local(grad.to_local(), grad.device_mesh, [\n"
+        "        Replicate() if isinstance(p, Partial) and axis != 'model'\n"
+        "        else p for axis, p in zip(grad.device_mesh.mesh_dim_names,\n"
+        "                                  grad.placements)], run_check=False)\n"
+        "    return grad.redistribute(grad.device_mesh, placements)\n",
+        ("spmd_cpu",)),
     # the DecoderLM train step, planted on the card side only (the launch
     # phase holds it to the same step on the CPU)
     "swiglu_w1_w3_swapped_on_card": (
         "src/repro_torch/models/common.py",
-        "    return (F.silu(x @ w1) * (x @ w3)) @ w2",
+        "    h = F.silu(x @ w1) * (x @ w3)\n",
         "    w1, w3 = (w3, w1) if x.is_cuda else (w1, w3)\n"
-        "    return (F.silu(x @ w1) * (x @ w3)) @ w2", ("launch",)),
+        "    h = F.silu(x @ w1) * (x @ w3)\n", ("launch",)),
 }
+# the sound tree through a phase (nothing planted): each must pass
+SOUND = {"sound_spmd": (None, None, None, ("spmd_cpu",))}
+FAULTS.update(SOUND)
 KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "logit_mean", "finite", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
         "variant", "max_abs_err_out", "max_abs_err_state", "err_over_limit_out",
@@ -190,14 +212,18 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
-    """``src/`` and ``chip_smoke.py`` copied to ``dst`` with each line (or
-    lines) of ``sound`` in the copy's ``path`` replaced by ``faulty``'s."""
+    """``src/``, ``tests/`` and ``chip_smoke.py`` copied to ``dst`` with
+    each line (or lines) of ``sound`` in the copy's ``path`` replaced by
+    ``faulty``'s (none where ``sound`` is None)."""
+    shutil.rmtree(dst, ignore_errors=True)
+    for tree in ("src", "tests"):
+        shutil.copytree(ROOT / tree, dst / tree,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    if sound is None:
+        return dst
     if isinstance(sound, str):
         sound, faulty = (sound,), (faulty,)
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(ROOT / "src", dst / "src",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
     text = (dst / path).read_text()
     for good, bad in zip(sound, faulty):
         if text.count(good) != 1:
@@ -212,7 +238,31 @@ def plant(name: str) -> Path:
     return copy_tree(ROOT / "build" / "planted" / name, path, sound, faulty)
 
 
+def run_spmd_cpu(name: str) -> dict:
+    """The two programs of tests/test_torch_spmd.py in the planted copy,
+    and that file's readings of their results."""
+    import tempfile
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    import test_torch_spmd as spmd
+    tree = plant(name)
+    out = tempfile.mkdtemp(prefix="planted_spmd_")
+    procs = spmd.start(out, tree)
+    logs = {role: p.communicate(timeout=900)[0] for role, p in procs.items()}
+    failed = {role: logs[role][-2000:] for role, p in procs.items()
+              if p.returncode != 0}
+    if failed:
+        return {"fault": name, "phase": "spmd_cpu", "rc": 1, "read": [],
+                "error": json.dumps(failed)[:2000]}
+    read = spmd.readings(spmd.load(out))
+    bad = sorted(k for k, v in read.items() if not v <= 1.0)
+    return {"fault": name, "phase": "spmd_cpu", "rc": 1 if bad else 0,
+            "read": read, "over_limit": bad,
+            "worst": max(read.values()), "error": None}
+
+
 def run(name: str, phase: str) -> dict:
+    if phase == "spmd_cpu":
+        return run_spmd_cpu(name)
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase],
                           cwd=plant(name), capture_output=True, text=True,
                           timeout=900)
@@ -239,7 +289,8 @@ def main(argv=None) -> int:
         for phase in FAULTS[name][3]:
             rec = run(name, phase)
             print(json.dumps(rec), flush=True)
-            caught = caught and rec["rc"] != 0
+            caught = caught and (rec["rc"] == 0 if name in SOUND
+                                 else rec["rc"] != 0)
     return 0 if caught else 1
 
 
