@@ -234,15 +234,22 @@ printing JSON lines:
    against the plain step from the same weights and batches, TF32 off:
    the first step's gradients within ``GRAD_TOL``, 3 steps' losses within
    ``LAUNCH_LOSS_TOL`` and parameters within ``LAUNCH_PARAM_RHO``; each
-   step's ms on both. Then llama3.2-3b whole, mixtral-8x22b cut to 2
-   layers and rwkv6-1.6b whole through ``make_prefill_step`` and
-   ``make_decode_step``: batch 4, prompt 2048, 16 greedy tokens without a
-   mesh, then on the mesh route (the weights and tokens DTensors; K3, K4
-   and K5 run per rank in ``local_map``) fed the same tokens; every
-   position's logits within ``LOGIT_TOL``; K3, K4 and K5's counts set to 0
-   just before the mesh route's prefill and read after it (llama: 28 K3
-   launches) and after its decode steps; prefill ms and decode tokens/s
-   of both routes (``spmd`` line).
+   step's ms on both; the same for hymba-1.5b's train step, 2 layers at
+   full width, batch 4 x seq 512, 2 AdamW steps (its Mamba scan per rank
+   under autograd, A's gradient partial over the batch split). Then
+   llama3.2-3b and rwkv6-1.6b cut to 8 layers, mixtral-8x22b to 2,
+   llava-next-34b to 2 (2880 frontend embeddings before the prompt),
+   seamless-m4t-large-v2 to 4 + 4 (4096 frames encoded, then 16 tokens
+   from token 0) and hymba-1.5b to 4 (the prompt over its window of 1024)
+   through ``make_prefill_step`` and ``make_decode_step``: batch 4,
+   prompt 2048, 16 greedy tokens without a mesh, then on the mesh route
+   (the weights, tokens, frontend embeddings and frames DTensors; K3, K4
+   and K5 run per rank in ``local_map``, hymba's Mamba scan too) fed the
+   same tokens; every position's logits within ``LOGIT_TOL``, seamless's
+   (k, v) within ``ENC_TOL``; K3, K4 and K5's counts set to 0 just before
+   the mesh route's prefill and read after it (K3 once a layer: llama 8,
+   llava 2, seamless's encoder 4, hymba 4) and after its decode steps;
+   prefill ms and decode tokens/s of both routes (``spmd`` line).
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -483,17 +490,27 @@ LAUNCH_LOSS_TOL = 1e-4
 LAUNCH_PARAM_RHO = 0.05
 # the sharded step (repro_torch.launch with a mesh: DTensor programs) on
 # the 1×1 mesh of fit_mesh over NCCL: smollm-360m's train step at full
-# width (bf16, remat, the default AdamW), batch 8 x seq 2048, 3 steps,
+# width (bf16, remat, the default AdamW), batch 8 x seq 2048, 3 steps, and
+# hymba-1.5b's, 2 layers at full width, batch 4 x seq 512, 2 steps, each
 # against the plain step from the same weights and batches (the first
 # step's gradients within GRAD_TOL, losses within LAUNCH_LOSS_TOL, the
 # parameters within LAUNCH_PARAM_RHO); prefill and 16 greedy tokens on the
 # mesh route (K3, K4, K5 in local_map) against the route without a mesh,
-# fed the same tokens, within LOGIT_TOL: llama3.2-3b whole, mixtral-8x22b
-# cut to 2 layers, rwkv6-1.6b whole; batch 4, prompt 2048
-SPMD = dict(arch="smollm-360m", batch=8, seq=2048, steps=3, seed=0,
-            infer=(("llama3.2-3b", None), ("mixtral-8x22b", 2),
-                   ("rwkv6-1.6b", None)),
-            infer_batch=4, prompt=2048, gen=16)
+# fed the same tokens, within LOGIT_TOL (seamless's (k, v) within
+# ENC_TOL): (arch, layers) at full width, batch 4, prompt 2048 (llava's
+# 2880 frontend embeddings before it; seamless's 4096 frames, its
+# encoder cut alike). llama3.2-3b and rwkv6-1.6b were whole before the
+# vlm, encoder-decoder and hybrid cases came; their whole models run in
+# the model and rwkv phases (PERF.md §4)
+SPMD = dict(train=(dict(arch="smollm-360m", n_layers=None, batch=8,
+                        seq=2048, steps=3),
+                   dict(arch="hymba-1.5b", n_layers=2, batch=4, seq=512,
+                        steps=2)),
+            seed=0,
+            infer=(("llama3.2-3b", 8), ("mixtral-8x22b", 2),
+                   ("rwkv6-1.6b", 8), ("llava-next-34b", 2),
+                   ("seamless-m4t-large-v2", 4), ("hymba-1.5b", 4)),
+            infer_batch=4, prompt=2048, gen=16, frames=4096)
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
           "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
           "hybrid", "spmd")
@@ -2931,26 +2948,29 @@ def run_launch(torch):
 # phase 18: the sharded step on a 1×1 mesh over NCCL
 
 
-def spmd_train(torch, mesh):
-    """smollm-360m's train step as a DTensor program on ``mesh`` against
-    the plain step: the first step's gradients (a step whose "optimizer"
-    returns them), then ``SPMD["steps"]`` AdamW steps, each side timed."""
+def spmd_train(torch, mesh, spec):
+    """``spec``'s train step (its arch, cut to its layers) as a DTensor
+    program on ``mesh`` against the plain step: the first step's gradients
+    (a step whose "optimizer" returns them), then ``spec["steps"]`` AdamW
+    steps, each side timed."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps, train
     from repro_torch.launch.train import synthetic_lm_batch
     from repro_torch.models import build_model
     from repro_torch.optim import Optimizer
     from repro_torch.sharding import step_placements
-    S, dev = SPMD, torch.device("cuda:0")
-    cfg = get_config(S["arch"])
+    dev = torch.device("cuda:0")
+    cfg = get_config(spec["arch"])
+    if spec["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     grads_opt = Optimizer(init=lambda p: {}, update=lambda g, s, p: (g, s))
     model = build_model(cfg, use_kernels=False, device=dev).init(
-        torch.Generator(dev).manual_seed(S["seed"]))
+        torch.Generator(dev).manual_seed(SPMD["seed"]))
     p0 = {n: t.detach() for n, t in model.named_parameters()}
     del model
-    rng = np.random.default_rng(S["seed"])
-    batches = [synthetic_lm_batch(rng, S["batch"], S["seq"], cfg.vocab, dev)
-               for _ in range(S["steps"])]
+    rng = np.random.default_rng(SPMD["seed"])
+    batches = [synthetic_lm_batch(rng, spec["batch"], spec["seq"], cfg.vocab,
+                                  dev) for _ in range(spec["steps"])]
     side = {}
     for name, m in (("plain", None), ("mesh", mesh)):
         _, _, grad_step = steps.make_train_step(cfg, grads_opt, device=dev,
@@ -2977,17 +2997,24 @@ def spmd_train(torch, mesh):
         del s
     (gm, pm, lm, tm), (gp, pp, lp, tp) = side["mesh"], side["plain"]
     grads = {n: rel_max(gm[n].float(), gp[n].float()) for n in gp}
-    rho = {n: float((pm[n].float() - pp[n].float()).norm()
-                    / (pp[n].float() - p0[n].float()).norm()) for n in pp}
+    # a tensor equal on both sides reads 0, whether or not the steps moved
+    # it (a bf16 norm weight of 1.0 stays 1.0 under AdamW's 3e-4): 0 / 0
+    # would be NaN; a difference over no movement is inf, and a NaN stays
+    rho = {}
+    for n in pp:
+        num = float((pm[n].float() - pp[n].float()).norm())
+        den = float((pp[n].float() - p0[n].float()).norm())
+        rho[n] = 0.0 if num == 0 else (num / den if den else float("inf"))
     losses = float(np.max(np.abs(np.subtract(lm, lp)) / np.abs(lp)))
     worst_g = max(grads, key=lambda n: grads[n])
     worst_p = max(rho, key=lambda n: rho[n])
-    got = {"grads": grads[worst_g], "losses": losses, "params": rho[worst_p]}
+    got = {"grads": float(np.max(list(grads.values()))), "losses": losses,
+           "params": float(np.max(list(rho.values())))}
     limits = {"grads": GRAD_TOL, "losses": LAUNCH_LOSS_TOL,
               "params": LAUNCH_PARAM_RHO}
     return dict(arch=cfg.name, n_layers=cfg.n_layers, dtype=str(cfg.dtype),
-                batch=S["batch"], seq=S["seq"], steps=S["steps"], remat=True,
-                **got, worst_grad=worst_g, worst_param=worst_p,
+                batch=spec["batch"], seq=spec["seq"], steps=spec["steps"],
+                remat=True, **got, worst_grad=worst_g, worst_param=worst_p,
                 limits=limits,
                 err_over_limit={k: v / limits[k] for k, v in got.items()},
                 losses_mesh=lm, losses_plain=lp, step_ms_mesh=tm,
@@ -2997,23 +3024,28 @@ def spmd_train(torch, mesh):
 
 
 def spmd_infer(torch, mesh, arch, n_layers):
-    """``arch`` (cut to ``n_layers``) through ``make_prefill_step`` and
-    ``make_decode_step``: without a mesh, then on the mesh route, fed the
-    same tokens. The launch counts of K3, K4 and K5 are set to 0 just
-    before the mesh route's prefill and read after it and after its
-    decode steps."""
+    """``arch`` (cut to ``n_layers``, an encoder-decoder's encoder too)
+    through ``make_prefill_step`` and ``make_decode_step``: without a
+    mesh, then on the mesh route, fed the same tokens: a decoder-only
+    model's prompt (after a vlm's frontend embeddings) and 15 greedy
+    steps, or an encoder-decoder's frames encoded and 16 greedy steps from
+    token 0. The launch counts of K3, K4 and K5 are set to 0 just before
+    the mesh route's prefill and read after it and after its decode
+    steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.launch import steps, train
-    from repro_torch.launch.inference_demo import make_prompts
+    from repro_torch.launch.inference_demo import make_inputs
     from repro_torch.sharding import step_placements
     S, dev = SPMD, torch.device("cuda:0")
     cfg = get_config(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    B, P, gen = S["infer_batch"], S["prompt"], S["gen"]
+    encdec = cfg.encoder_layers > 0
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, **(
+        {"encoder_layers": n_layers} if encdec else {}))
+    B, P, gen, V = S["infer_batch"], S["prompt"], S["gen"], cfg.vocab
+    N = cfg.n_frontend_embeds
     runs = {}
     for route, m in (("plain", None), ("mesh", mesh)):
         model, prefill = steps.make_prefill_step(cfg, "prefill_32k",
@@ -3022,65 +3054,94 @@ def spmd_infer(torch, mesh, arch, n_layers):
         dmodel, decode = steps.make_decode_step(cfg, "decode_32k",
                                                 device="meta", mesh=m)
         dmodel.load_state_dict(model.state_dict(), assign=True)
-        prompts = make_prompts(cfg, B, P, S["seed"], dev)
+        prompts, fe = make_inputs(cfg, B, P, S["seed"], dev)
+        frames = torch.as_tensor(np.random.default_rng(S["seed"]).normal(
+            0, 0.1, (B, S["frames"], cfg.d_model)), device=dev).to(
+                cfg.dtype) if encdec else None
 
-        def put(t, m=m):
-            return t if m is None else train.distribute(
-                t, step_placements("prefill", m, tokens=t)["in"][1], m)
+        def put(t, kind="tokens", m=m):
+            if m is None or t is None:
+                return t
+            at = 2 if kind == "frontend_embeds" else 1
+            return train.distribute(t, step_placements(
+                "prefill", m, **{kind: t})["in"][at], m)
+
+        def run_prefill(n):
+            """The prefill of the first ``n`` prompt tokens (frames)."""
+            if encdec:
+                return prefill(put(frames[:, :n], "frames")), None
+            return prefill(put(prompts[:, :n]), N + n + gen,
+                           frontend_embeds=put(fe, "frontend_embeds"))
 
         if m is not None:
             steps.distribute_model(model, m)
             steps.distribute_model(dmodel, m)
             fed = runs["plain"]["fed"]
-        prefill(put(prompts[:, :256]), 258)   # warm-up
+        run_prefill(256)   # warm-up
         fa.flash_attention.launches = 0
         rs.rwkv_scan.launches = 0
         mg.reset_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, cache = prefill(put(prompts), P + gen)
+        first, cache = run_prefill(S["frames"] if encdec else P)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t)
         k3, k4, k5 = (fa.flash_attention.launches, rs.rwkv_scan.launches,
                       mg.moe_gemm.launches)
-        out = [logits.full_tensor() if m is not None else logits]
+        enc_kv, out = (first, []) if encdec else ((), [first])
+        if encdec:
+            cache = dmodel.init_cache(B, gen)
+            cache = cache if m is None else steps.place_cache(cache, m)
+        whole = [t.full_tensor() if m is not None else t for t in out]
         if m is None:
-            fed = [torch.argmax(out[0][:, -1], -1)[:, None]]
+            fed = [torch.argmax(whole[0][:, -1], -1)[:, None] if whole
+                   else torch.zeros((B, 1), dtype=torch.int64, device=dev)]
+        n_steps = gen - len(whole)
         t = time.perf_counter()
-        for i in range(gen - 1):
-            logits, cache = decode(cache, put(fed[i]))
-            out.append(logits.full_tensor() if m is not None else logits)
+        for i in range(n_steps):
+            logits, cache = decode(cache, put(fed[i]),
+                                   *((enc_kv,) if encdec else ()))
+            whole.append(logits.full_tensor() if m is not None else logits)
             if m is None:
-                fed.append(torch.argmax(out[-1][:, -1], -1)[:, None])
+                fed.append(torch.argmax(whole[-1][:, -1], -1)[:, None])
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t
-        runs[route] = dict(fed=fed, logits=[o[:, -1:].float() for o in out],
-                           prefill_ms=prefill_ms,
-                           decode_tok_per_s=(gen - 1) * B / decode_s,
-                           k3_launches=k3, k4_launches=k4,
-                           k5_launches_prefill=k5,
-                           k5_launches=mg.moe_gemm.launches)
-        del model, dmodel, cache, logits
+        runs[route] = dict(
+            fed=fed, logits=[o[:, -1:, :V].float() for o in whole],
+            enc_kv=[t.full_tensor() if m is not None else t
+                    for t in enc_kv],
+            prefill_ms=prefill_ms, decode_tok_per_s=n_steps * B / decode_s,
+            k3_launches=k3, k4_launches=k4, k5_launches_prefill=k5,
+            k5_launches=mg.moe_gemm.launches)
+        del model, dmodel, cache, first, whole, enc_kv
         torch.cuda.empty_cache()
     a, b = runs["mesh"], runs["plain"]
     agree = [logits_agree(torch, x, y) for x, y in zip(a["logits"],
                                                       b["logits"])]
     worst = max(agree, key=lambda r: r["rel_diff"])
-    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, prompt=P,
+    enc = float(np.max([rel_max(x, y) for x, y in zip(a["enc_kv"],
+                                                        b["enc_kv"])]
+                       or [0.0]))
+    return dict(arch=cfg.name, n_layers=cfg.n_layers,
+                encoder_layers=cfg.encoder_layers, batch=B,
+                prompt=S["frames"] if encdec else P, frontend_embeds=N,
                 gen=gen, mesh_vs_plain=worst,
+                enc_kv_mesh_vs_plain=enc if encdec else None,
                 prefill_ms_mesh=a["prefill_ms"],
                 prefill_ms_plain=b["prefill_ms"],
                 decode_tok_per_s_mesh=a["decode_tok_per_s"],
                 decode_tok_per_s_plain=b["decode_tok_per_s"],
                 **{k: a[k] for k in ("k3_launches", "k4_launches",
                                      "k5_launches_prefill", "k5_launches")},
-                finite=all_finite(torch, *a["logits"]))
+                finite=all_finite(torch, *a["logits"], *a["enc_kv"]))
 
 
 def run_spmd(torch):
     """Phase 18: NCCL at world size 1 and the 1×1 mesh of ``fit_mesh``;
-    smollm-360m's DTensor train step against the plain step; llama3.2-3b,
-    mixtral-8x22b (2 layers) and rwkv6-1.6b on the mesh route."""
+    smollm-360m's and hymba-1.5b's DTensor train steps against the plain
+    step; llama3.2-3b, mixtral-8x22b, rwkv6-1.6b, llava-next-34b,
+    seamless-m4t-large-v2 and hymba-1.5b (each cut in depth) on the mesh
+    route."""
     import torch.distributed as dist
     from repro_torch.launch import train
     t0 = time.perf_counter()
@@ -3090,38 +3151,51 @@ def run_spmd(torch):
                      world=dist.get_world_size(),
                      mesh=list(mesh.shape),
                      axes=list(mesh.mesh_dim_names))
-        t = time.perf_counter()
-        step = spmd_train(torch, mesh)
-        step["s"] = time.perf_counter() - t
+        # each case on a line of its own as it ends ("spmd_case"), then
+        # all of them on the phase's line
+        trained = {}
+        for spec in SPMD["train"]:
+            t = time.perf_counter()
+            trained[spec["arch"]] = spmd_train(torch, mesh, spec)
+            trained[spec["arch"]]["s"] = time.perf_counter() - t
+            emit("spmd_case", kind="train", **trained[spec["arch"]])
         infer = {}
         for arch, n_layers in SPMD["infer"]:
             t = time.perf_counter()
             infer[arch] = spmd_infer(torch, mesh, arch, n_layers)
             infer[arch]["s"] = time.perf_counter() - t
+            emit("spmd_case", kind="infer", **infer[arch])
     finally:
         dist.destroy_process_group()
-    emit("spmd", **group, train=step, infer=infer,
+    emit("spmd", **group, train=trained, infer=infer,
          s=time.perf_counter() - t0)
     require(group["backend"] == "nccl" and group["world"] == 1
             and group["mesh"] == [1, 1], f"spmd: the group {group}")
-    for k, v in step["err_over_limit"].items():
-        require(not v > 1.0 and v == v,
-                f"spmd: the DTensor train step against the plain step, {k} "
-                f"{step[k]} > {step['limits'][k]}")
-    require(step["finite"], "spmd: a non-finite loss or gradient")
+    for arch, step in trained.items():
+        for k, v in step["err_over_limit"].items():
+            require(not v > 1.0 and v == v,
+                    f"spmd: {arch}'s DTensor train step against the plain "
+                    f"step, {k} {step[k]} > {step['limits'][k]}")
+        require(step["finite"], f"spmd: {arch}: a non-finite loss or "
+                "gradient")
     for arch, r in infer.items():
         require(r["finite"], f"spmd: {arch}'s mesh-route logits not finite")
         require(r["mesh_vs_plain"]["ok"],
                 f"spmd: {arch} mesh route != plain: {r['mesh_vs_plain']}")
-    llama = infer["llama3.2-3b"]
-    require(llama["k3_launches"] == 28,
-            f"spmd: K3 launched {llama['k3_launches']} times in llama's "
-            "mesh-route prefill, want 28")
+        # K3 once a layer of the mesh route's prefill (an encoder's)
+        want_k3 = 0 if arch.startswith("rwkv") else (
+            r["encoder_layers"] or r["n_layers"])
+        require(r["k3_launches"] == want_k3,
+                f"spmd: K3 launched {r['k3_launches']} times in {arch}'s "
+                f"mesh-route prefill, want {want_k3}")
+    enc = infer["seamless-m4t-large-v2"]["enc_kv_mesh_vs_plain"]
+    require(not enc > ENC_TOL, f"spmd: seamless's (k, v) on the mesh route "
+            f"{enc} > {ENC_TOL} of the route without a mesh")
     require(infer["mixtral-8x22b"]["k5_launches"] > 0,
             "spmd: K5 never launched on mixtral's mesh route")
     require(infer["rwkv6-1.6b"]["k4_launches"] > 0,
             "spmd: K4 never launched on rwkv6's mesh route")
-    return {"train": step, "infer": infer}
+    return {"train": trained, "infer": infer}
 
 
 def main(argv=None) -> int:

@@ -66,10 +66,13 @@ test module: one process, collectives that move nothing). Per record
   same shapes (``kernels.rwkv_scan._meta_scan``) in place of a loop over
   the tokens.
 
-The vlm, encoder-decoder and hybrid families do not run on a mesh yet:
-their records say so in ``spmd`` (:data:`SPMD_NOT_PORTED`). The reference's
-HLO FLOPs and bytes, memory analysis and compile times have no
-counterpart here. A step that fails is recorded as an error row, as the
+An encoder-decoder's runs take a line in each stack, through (2, 2),
+(3, 2) and (2, 3) decoder and encoder layers. The hybrid's Mamba scan,
+rank-local like the kernels, is stood in for on meta tensors by a few
+ops of the same shapes (``models.ssm._meta_selective_scan``), so its
+train and prefill steps run at the shape's own sequence length. The
+reference's HLO FLOPs and bytes, memory analysis and compile times have
+no counterpart here. A step that fails is recorded as an error row, as the
 reference records a failure.
 """
 from __future__ import annotations
@@ -118,15 +121,14 @@ COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 # functional collectives, and DTensor's own all-to-all (a move of a shard
 # from one tensor dim to another)
 COLLECTIVE_OPS = ("_c10d_functional", "c10d_functional", "_dtensor")
-SPMD_FAMILIES = ("dense", "moe", "ssm")
 # the depths of the DTensor runs: the first layer's program differs from
 # the others' (DTensor picks its strategies by the placements that come
 # in, and the first layer's come from the embedding), so the line runs
-# through 2 and 3 layers, from which on each layer adds the same program
+# through 2 and 3 layers, from which on each layer adds the same program;
+# an encoder-decoder's through (2, 2), (3, 2) and (2, 3) decoder and
+# encoder layers, a line in each, as the reference's probe takes p11, p21
+# and p12
 PROBE_LAYERS = (2, 3)
-SPMD_NOT_PORTED = ("not ported yet: the vlm, encoder-decoder and hybrid "
-                   "families run on one device; on a mesh they are the next "
-                   "slice")
 
 
 def _collective_kind(func):
@@ -258,23 +260,42 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
         model, step = make_prefill_step(cfg, shape_name, device="meta",
                                         mesh=mesh, strategy=strategy)
         distribute_model(model, mesh, strategy)
-        tokens = distribute(specs["tokens"], step_placements(
-            "prefill", mesh, strategy, tokens=specs["tokens"])["in"][1], mesh)
+        inputs = {k: specs[k] for k in ("frames", "tokens", "frontend_embeds")
+                  if k in specs}
+        # in: (params, frames), or (params, tokens, frontend_embeds)
+        names = (("frames",) if "frames" in inputs
+                 else ("tokens", "frontend_embeds"))
+        args = {n: distribute(inputs[n], pl, mesh) for n, pl in zip(
+            names, step_placements("prefill", mesh, strategy,
+                                   **inputs)["in"][1:]) if n in inputs}
         with CommDebugMode() as comm, counter:
-            logits, cache = step(tokens)
-        places = step_placements("prefill", mesh, strategy, cache=cache)
-        got = (tuple(logits.placements), _placements(cache))
+            if "frames" in args:
+                enc_kv = step(args["frames"])
+            else:
+                logits, cache = step(args["tokens"], frontend_embeds=args.get(
+                    "frontend_embeds"))
+        if "frames" in args:
+            places = step_placements("prefill", mesh, strategy,
+                                     frames=inputs["frames"], enc_kv=enc_kv)
+            got = _placements(enc_kv)
+        else:
+            places = step_placements("prefill", mesh, strategy, cache=cache)
+            got = (tuple(logits.placements), _placements(cache))
     else:
         model, step = make_decode_step(cfg, shape_name, device="meta",
                                        mesh=mesh)
         distribute_model(model, mesh, strategy)
         places = step_placements("decode", mesh, strategy,
                                  cache=specs["cache"],
-                                 tokens=specs["tokens"])
+                                 tokens=specs["tokens"],
+                                 enc_kv=specs.get("enc_kv"))
         cache = place_cache(specs["cache"], mesh, strategy)
         tokens = distribute(specs["tokens"], places["in"][2], mesh)
+        enc_kv = () if "enc_kv" not in specs else (tuple(
+            distribute(t.detach(), pl, mesh)
+            for t, pl in zip(specs["enc_kv"], places["in"][3])),)
         with CommDebugMode() as comm, counter:
-            logits, cache = step(cache, tokens)
+            logits, cache = step(cache, tokens, *enc_kv)
         got = (tuple(logits.placements), _placements(cache))
     ok = got == tuple(places["out"])
     counts = {k: int(v) for k, v in counter.counts.items()}
@@ -315,28 +336,59 @@ def _linear(points, L):
             // (lb - la) for k in keys}
 
 
+def _probe_depths(cfg):
+    """The (decoder, encoder) layers of the DTensor runs: PROBE_LAYERS'
+    first in each stack, then its second in one stack at a time (one run
+    of the whole model if it is shallower)."""
+    a, b = PROBE_LAYERS
+    if cfg.encoder_layers > 0:
+        return [(a, a), (b, a), (a, b)]
+    return [(a, 0), (b, 0)] if cfg.n_layers >= a else [(cfg.n_layers, 0)]
+
+
+def _extrapolated(depths, runs, cfg):
+    """Per op type, the line in each stack's layers through the runs at
+    ``depths`` (:func:`_probe_depths`), at ``cfg``'s depths."""
+    if len(runs) == 1:
+        return dict(runs[0])
+    full = (cfg.n_layers, cfg.encoder_layers)
+    (base, c0), others = (depths[0], runs[0]), zip(depths[1:], runs[1:])
+    out = dict(c0)
+    for d, c in others:
+        i = 0 if d[0] != base[0] else 1
+        line = _linear([(base[i], c0), (d[i], c)], full[i])
+        out = {k: out.get(k, 0) + line.get(k, 0) - c0.get(k, 0)
+               for k in sorted(set(out) | set(line))}
+    return out
+
+
 def spmd_record(cfg, shape_name: str, mesh_shape, strategy: str) -> dict:
     """The SPMD fields of one record (see the module's docstring)."""
-    if cfg.family not in SPMD_FAMILIES or cfg.hybrid:
-        return {"spmd": SPMD_NOT_PORTED}
     t = time.perf_counter()
-    depths = PROBE_LAYERS if cfg.n_layers >= PROBE_LAYERS[0] else (
-        cfg.n_layers,)
+    depths = _probe_depths(cfg)
     with fake_group():
         mesh = fake_mesh(dtensor_mesh_shape(mesh_shape, strategy))
-        runs = [spmd_run(dataclasses.replace(cfg, n_layers=L), shape_name,
-                         mesh, strategy) for L in depths]
-    out = {field: _linear([(L, r[field]) for L, r in zip(depths, runs)],
-                          cfg.n_layers) for field in ("counts", "bytes")}
-    method = (f"runs at {' and '.join(map(str, depths))} layers, linear "
-              "in layers")
+        runs = [spmd_run(dataclasses.replace(cfg, n_layers=L,
+                                             encoder_layers=E),
+                         shape_name, mesh, strategy) for L, E in depths]
+    out = {field: _extrapolated(depths, [r[field] for r in runs], cfg)
+           for field in ("counts", "bytes")}
+    if cfg.encoder_layers > 0:
+        method = (f"runs at {', '.join(f'({L}, {E})' for L, E in depths)} "
+                  "decoder and encoder layers, linear in each")
+    else:
+        method = (f"runs at {' and '.join(str(L) for L, _ in depths)} "
+                  "layers, linear in layers")
     run_on = dtensor_mesh_shape(mesh_shape, strategy)
     if run_on != mesh_shape:
         method += (f"; on {'x'.join(map(str, run_on.axis_sizes))} "
                    "(pod and data as one axis)")
     if cfg.family == "ssm":
         method += "; the rank-local scan stood in for on meta tensors"
-    elif input_specs(cfg, shape_name)[0] != "train":
+    elif cfg.hybrid:
+        method += "; the rank-local Mamba scan stood in for on meta tensors"
+    if not cfg.is_attention_free and input_specs(cfg, shape_name)[0] != \
+            "train":
         method += "; the rank-local kernels' plain versions on meta tensors"
     return {"spmd_ok": all(r["ok"] for r in runs),
             "collective_counts": {k: out["counts"].get(k, 0)

@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.models import (SHAPES, ModelConfig, build_model,
                                 shape_for_long_context)
-from repro_torch.models.common import use_mesh
+from repro_torch.models.common import as_dtensor, use_mesh
 from repro_torch.optim import adamw, sgd
+from repro_torch.sharding import step_placements
 
 # parameter-count threshold above which training uses SGD-momentum with
 # bf16 state instead of AdamW fp32 state (memory fit for the giant MoEs)
@@ -112,7 +113,6 @@ def distribute_model(model, mesh, strategy: str = "tp_fsdp"):
     from torch import nn
     from torch.distributed.tensor import distribute_tensor
 
-    from repro_torch.sharding import step_placements
     params = {n: p.detach() for n, p in model.named_parameters()}
     placements = step_placements("prefill", mesh, strategy,
                                  params=params)["in"][0]
@@ -140,14 +140,22 @@ def make_prefill_step(cfg: ModelConfig, shape_name: str, device=None,
     ``prefill_step(frames)`` encodes ``frames`` [B, Se, d] and returns
     the decoder's cross-attention (k, v) of them (``precompute_enc_kv``).
     On a ``mesh`` the model's weights are DTensors (``distribute_model``
-    places them) and so are the tokens (``batch_specs``); the logits come
+    places them) and so are the tokens, a vlm's ``frontend_embeds`` and
+    an encoder-decoder's ``frames`` (``batch_specs``); the logits come
     out replicated and the cache as ``cache_specs`` places it (the
-    strategy's ``seq_over_model``, default on)."""
+    strategy's ``seq_over_model``, default on); an encoder-decoder's
+    (k, v) as its decode step takes them (``cache_specs`` over the batch
+    only)."""
     model = build_model(cfg, device=device, unroll=unroll)
     if cfg.encoder_layers > 0:
-        @torch.inference_mode()
         def encode_step(frames):
-            return model.precompute_enc_kv(model.encode(frames))
+            with _no_autograd(mesh), use_mesh(mesh):
+                enc_kv = model.precompute_enc_kv(model.encode(frames))
+                if mesh is not None:
+                    enc_kv = _place(enc_kv, step_placements(
+                        "prefill", mesh, strategy, frames=frames,
+                        enc_kv=enc_kv)["out"], mesh)
+            return enc_kv
 
         return model, encode_step
 
@@ -170,16 +178,17 @@ def place_cache(cache, mesh, strategy: str = "tp_fsdp"):
     redistributed as ``cache_specs`` places it on ``mesh`` under
     ``strategy`` (its sequence over ``model`` unless the strategy says
     otherwise, as the reference's dry run's decode)."""
-    from repro_torch.models.common import as_dtensor
-    from repro_torch.sharding import step_placements
-    placements = step_placements("decode", mesh, strategy,
-                                 cache=cache)["in"][1]
+    return _place(cache, step_placements("decode", mesh, strategy,
+                                         cache=cache)["in"][1], mesh)
 
-    def place(t, pl):
-        if isinstance(t, tuple):
-            return type(t)(*(place(a, b) for a, b in zip(t, pl)))
-        return as_dtensor(t, mesh).redistribute(mesh, pl)
-    return place(cache, placements)
+
+def _place(tree, placements, mesh):
+    """Each tensor of ``tree`` (tuples, named tuples too) redistributed to
+    its placements on ``mesh``; a plain tensor counts as replicated."""
+    if isinstance(tree, tuple):
+        parts = [_place(t, p, mesh) for t, p in zip(tree, placements)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return as_dtensor(tree, mesh).redistribute(mesh, placements)
 
 
 def make_decode_step(cfg: ModelConfig, shape_name: str, device=None,
@@ -193,21 +202,15 @@ def make_decode_step(cfg: ModelConfig, shape_name: str, device=None,
     mesh). An
     encoder-decoder's step is ``decode_step(cache, tokens, enc_kv)``, with
     the cross attention's (k, v) of ``make_prefill_step``. On a ``mesh``
-    the weights, the cache (:func:`place_cache`) and the tokens are
-    DTensors; the logits come out replicated, the cache on its own
-    placements."""
+    the weights, the cache (:func:`place_cache`), the tokens and an
+    encoder-decoder's (k, v) are DTensors; the logits come out
+    replicated, the cache on its own placements."""
     model = build_model(shape_for_long_context(cfg), device=device,
                         unroll=unroll)
-    if cfg.encoder_layers > 0:
-        @torch.inference_mode()
-        def encdec_decode_step(cache, tokens, enc_kv):
-            return model.decode_step(cache, tokens, enc_kv)
 
-        return model, encdec_decode_step
-
-    def decode_step(cache, tokens):
+    def decode_step(cache, tokens, *enc_kv):
         with _no_autograd(mesh), use_mesh(mesh):
-            logits, cache = model.decode_step(cache, tokens)
+            logits, cache = model.decode_step(cache, tokens, *enc_kv)
             if mesh is not None:
                 logits = _replicated(logits, mesh)
         return logits, cache

@@ -29,11 +29,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._shards import is_dtensor
+from repro_torch.kernels._shards import (evenly_sharded, is_dtensor,
+                                         on_shards, refuse)
 from repro_torch.kernels.rwkv_scan import (on_mesh, rwkv_scan, rwkv_scan_plain,
                                            u_like)
 
-from .common import BATCH_AXES, ModelConfig, dense_init, maybe_shard
+from .common import (BATCH_AXES, ModelConfig, as_dtensor, constraint_spec,
+                     dense_init, maybe_shard)
 
 LORA_DIM = 32
 
@@ -257,6 +259,82 @@ def _selective_scan(x, dt, Bm, Cm, A, h):
     return torch.cat(ys, 1), h.clone()
 
 
+def _meta_selective_scan(x, dt, Bm, Cm, A, h):
+    """The scan's stand-in on meta tensors: (y [B,S,d], h [B,d,n]) float32,
+    each a function of every input, so that a meta run's autograd graph
+    reaches them all; a few ops a call, where the scan loops over the
+    tokens."""
+    y = x * dt * ((Bm * Cm).sum(-1, keepdim=True) + A.sum(-1))
+    return y, h * A + torch.einsum("bsd,bsn->bdn", x * dt, Bm + Cm)
+
+
+def _moved(name, t, want):
+    """DTensor ``t`` on the placements ``want`` by moves that gather
+    nothing: a replica sliced to a shard (local), a partial sum reduced;
+    any other move raises ``ValueError``."""
+    from torch.distributed.tensor import Partial, Replicate
+    for have, w in zip(t.placements, want):
+        if not (have == w or isinstance(have, (Replicate, Partial))):
+            raise refuse("selective_scan", f"{name} is {have} where the scan "
+                         f"takes {w}", t)
+    return t.redistribute(t.device_mesh, tuple(want))
+
+
+def selective_scan_on_mesh(x, dt, Bm, Cm, A, h):
+    """:func:`_selective_scan` on DTensors (``h`` may be a plain tensor,
+    counted as replicated): each rank scans its own rows of the batch or
+    its own channels of d, on the placements its inputs have. The
+    recurrence is elementwise in d and ``h . C`` sums over n alone, so a
+    rank's channels need no other rank's. Per mesh dim, x and dt [B,S,d]
+    and the state h [B,d,n] name the scan's split: the batch (x, dt
+    ``Shard(0)``, h ``Shard(0)``; Bm, Cm ``Shard(0)``, A replicated), d (x,
+    dt ``Shard(2)``, h ``Shard(1)``; Bm, Cm replicated, A ``Shard(0)``) or
+    none (all replicated); where none names a split, the batch is split
+    over the data axes it divides (as ``maybe_shard`` pins a batch) and
+    nothing over the others. An input replicated where the split wants a
+    shard is sliced locally and a partial sum is reduced; a placement the
+    split cannot take without a gather raises ``ValueError``. Under
+    autograd an input replicated over ranks that hold different parts of
+    the others gets a partial gradient there: A's over the batch split,
+    Bm's and Cm's over the d split. On meta tensors (the dry run's
+    DTensor programs) the scan is :func:`_meta_selective_scan`."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    h = as_dtensor(h, mesh)
+
+    def role(d_dim, p):  # the split a placement names
+        if isinstance(p, Replicate):
+            return None
+        return {Shard(0): "batch", Shard(d_dim): "d"}.get(p, "bad")
+
+    # the axes the batch goes over, as the model's pins name them
+    batch_axes = constraint_spec(x.shape[:1], (BATCH_AXES,), mesh)[0] or ()
+    roles = []
+    for axis, px, ph in zip(mesh.mesh_dim_names, x.placements, h.placements):
+        named = {role(2, px), role(1, ph)} - {None}
+        if len(named) > 1 or "bad" in named:
+            raise refuse("selective_scan", f"x is {px} and h {ph} on one mesh "
+                         "dim: the scan splits the batch or d", x, h)
+        roles.append(named.pop() if named else
+                     "batch" if axis in batch_axes else None)
+    split = {"batch": (Shard(0), Shard(0), Shard(0), Replicate()),
+             "d": (Shard(2), Shard(1), Replicate(), Shard(0)),
+             None: (Replicate(),) * 4}
+    xs, hs, bc, a = (tuple(split[r][i] for r in roles) for i in range(4))
+    x, dt, h = (_moved(n, t, p) for n, t, p in
+                (("x", x, xs), ("dt", dt, xs), ("h", h, hs)))
+    Bm, Cm = _moved("Bm", Bm, bc), _moved("Cm", Cm, bc)
+    A = _moved("A", as_dtensor(A, mesh), a)
+    for name, t in (("x", x), ("h", h)):
+        evenly_sharded(f"selective_scan {name}", t)
+    bc_grad = tuple(Partial() if r == "d" else p for r, p in zip(roles, bc))
+    a_grad = tuple(Partial() if r == "batch" else p for r, p in zip(roles, a))
+    scan = _meta_selective_scan if x.is_meta else _selective_scan
+    return on_shards(scan, (xs, hs), x, dt, Bm, Cm, A, h,
+                     grad_placements=(None, None, bc_grad, bc_grad, a_grad,
+                                      None))
+
+
 def _mamba_core(params, xz, conv_state, h0):
     """xz: [B,S,2d]; conv_state: [B,CONV_K-1,d]; h0: [B,d,n] float32.
     Returns (out [B,S,d], the new conv state, the final h)."""
@@ -276,8 +354,8 @@ def _mamba_core(params, xz, conv_state, h0):
     # differs there by log1p(exp(-x)) < 2.1e-9
     dt = F.softplus(x * params["w_dt"] + params["dt_bias"])  # [B,S,d]
     A = -torch.exp(params["logA"].float())                   # [d,n]
-    y, h = _selective_scan(x.float(), dt.float(), Bm.float(), Cm.float(), A,
-                           h0)
+    scan = selective_scan_on_mesh if is_dtensor(x) else _selective_scan
+    y, h = scan(x.float(), dt.float(), Bm.float(), Cm.float(), A, h0)
     y = y.to(x.dtype)
     y = y + x * params["D"]
     return (y * F.silu(z)) @ params["out_proj"], new_conv_state, h

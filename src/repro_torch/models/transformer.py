@@ -350,6 +350,13 @@ def _stacked_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
                     n_layers)
 
 
+def _roll_slots(kv, r: int):
+    """``torch.roll(kv, r, dims=2)`` (a stacked K or V [L, B, C, KV, dh]
+    rolled ``r`` slots along C) as two slices concatenated: torch 2.11's
+    DTensor has no strategy for ``aten.roll``."""
+    return torch.cat([kv[:, :, -r:], kv[:, :, :-r]], dim=2) if r else kv
+
+
 def _decode_layers(blocks, x, cache, cfg: ModelConfig, enc_kv=None,
                    use_kernels=False):
     """``block_decode`` of each block on its layer of the stacked KV
@@ -563,8 +570,8 @@ class DecoderLM(nn.Module):
         elif cfg.attn_variant == "swa" and S > C:
             # align the sliced window with the ring-buffer slot convention
             # (token t lives at slot t % C)
-            ks_ = torch.roll(ks_, S % C, dims=2)
-            vs_ = torch.roll(vs_, S % C, dims=2)
+            ks_ = _roll_slots(ks_, S % C)
+            vs_ = _roll_slots(vs_, S % C)
         if cfg.cache_dtype is not None:
             ks_ = ks_.to(cfg.cache_dtype)
             vs_ = vs_.to(cfg.cache_dtype)

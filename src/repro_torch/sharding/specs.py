@@ -292,21 +292,31 @@ def tree_placements(spec_tree, mesh):
 
 def step_placements(kind: str, mesh, strategy: str = "tp_fsdp", *,
                     params=None, opt_state=None, batch=None, tokens=None,
-                    cache=None) -> dict:
+                    cache=None, frames=None, frontend_embeds=None,
+                    enc_kv=None) -> dict:
     """The in- and out-placements of a step on ``mesh`` under
     ``strategy``, as the reference's ``jax.jit`` of it takes them
     (``in_shardings``, ``out_shardings`` of its ``tree_shardings``):
     ``{"in": (...), "out": (...)}`` of placements trees. ``params``,
-    ``opt_state`` (the port's names), ``batch``, ``tokens`` and ``cache``
-    are anything with shapes; one left out has ``None`` in its places.
+    ``opt_state`` (the port's names), ``batch``, ``tokens``, ``cache``,
+    an encoder-decoder's ``frames`` and ``enc_kv`` and a vlm's
+    ``frontend_embeds`` are anything with shapes; one left out has
+    ``None`` in its places.
 
     * train: in (params, opt_state, batch), out (params, opt_state, the
       loss replicated);
-    * prefill: in (params, tokens), out (the logits replicated, the cache
-      of ``cache_specs``; its sequence over ``model`` unless the strategy
-      says otherwise);
-    * decode: in (params, cache, tokens), out (the logits replicated, the
-      cache)."""
+    * prefill: in (params, tokens, frontend_embeds), each input under
+      ``batch_specs``, out (the logits replicated, the cache of
+      ``cache_specs``; its sequence over ``model`` unless the strategy
+      says otherwise). Given ``frames`` (an encoder-decoder's prefill:
+      the encoder, then the cross attention's K/V), in (params, frames),
+      and out the placements of ``enc_kv`` that decode takes in: the
+      reference's jit of this step states no ``out_shardings``, so the
+      port states these;
+    * decode: in (params, cache, tokens, enc_kv), out (the logits
+      replicated, the cache). ``enc_kv``, an encoder-decoder's cross K/V,
+      is placed by ``cache_specs`` without the sequence over ``model``
+      (the reference's "cross-KV: batch only")."""
     skw = STRATEGIES[strategy]
 
     def placed(tree, specs):
@@ -315,18 +325,23 @@ def step_placements(kind: str, mesh, strategy: str = "tp_fsdp", *,
     def state(tree):
         return port_param_specs(tree, mesh, **skw)
 
+    def batched(tree):
+        return placed(tree, lambda b: batch_specs(b, mesh))
+
     pl = placed(params, state)
     rep = spec_placements(P(), mesh)
     if kind == "train":
         ol = placed(opt_state, state)
-        return {"in": (pl, ol, placed(batch, lambda b: batch_specs(b, mesh))),
-                "out": (pl, ol, rep)}
+        return {"in": (pl, ol, batched(batch)), "out": (pl, ol, rep)}
     cl = placed(cache, lambda c: cache_specs(
         c, mesh, seq_over_model=skw.get("seq_over_model", True)))
-    tl = placed(tokens, lambda b: batch_specs(b, mesh))
+    el = placed(enc_kv, lambda e: cache_specs(e, mesh))
     if kind == "prefill":
-        return {"in": (pl, tl), "out": (rep, cl)}
-    return {"in": (pl, cl, tl), "out": (rep, cl)}
+        if frames is not None:
+            return {"in": (pl, batched(frames)), "out": el}
+        return {"in": (pl, batched(tokens), batched(frontend_embeds)),
+                "out": (rep, cl)}
+    return {"in": (pl, cl, batched(tokens), el), "out": (rep, cl)}
 
 
 def sharded_bytes(struct, spec_tree, mesh) -> int:

@@ -186,13 +186,20 @@ def test_tree_placements():
 
 
 @pytest.mark.parametrize("strategy", list(REF_STRATEGIES))
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b",
+                                  "llava-next-34b", "seamless-m4t-large-v2",
+                                  "hymba-1.5b"])
 def test_step_placements_are_the_reference_specs(arch, strategy):
     """The in- and out-placements of each step kind: the parameters and
     the optimizer state under the strategy's specs, the tokens and the
     batch under the reference's ``batch_specs``, the cache under its
     ``cache_specs`` (the sequence over ``model`` unless the strategy says
-    otherwise), the logits and the loss replicated."""
+    otherwise; a hybrid's (KVCache, MambaState)), the logits and the loss
+    replicated; a vlm's ``frontend_embeds`` and an encoder-decoder's
+    ``frames`` under ``batch_specs`` (the reference's dry run,
+    ``src/repro/launch/dryrun.py:148``), its ``enc_kv`` under
+    ``cache_specs`` without the sequence over ``model`` (:171), in
+    decode and out of its prefill."""
     ref_mesh, mesh = _meshes("16x16")
     skw = STRATEGIES[strategy]
     inputs = _structs(arch)[2]
@@ -234,6 +241,29 @@ def test_step_placements_are_the_reference_specs(arch, strategy):
     # an argument left out has None in its places
     assert step_placements("decode", mesh, strategy,
                            cache=_to_meta(cache))["in"][0::2] == (None, None)
+    pre = inputs["prefill_32k"]
+    if "frontend_embeds" in pre:
+        vlm = step_placements("prefill", mesh, strategy,
+                              tokens=_to_meta(pre["tokens"]),
+                              frontend_embeds=_to_meta(pre["frontend_embeds"]))
+        assert [vlm["in"][1]] == ref(ref_batch_specs(pre["tokens"], ref_mesh))
+        assert [vlm["in"][2]] == ref(ref_batch_specs(pre["frontend_embeds"],
+                                                     ref_mesh))
+    else:
+        assert prefill["in"][2] is None
+    if "frames" not in pre:
+        assert decode["in"][3] is None
+        return
+    enc_kv = inputs["decode_32k"]["enc_kv"]
+    want_kv = ref(ref_cache_specs(enc_kv, ref_mesh))  # "batch only"
+    enc = step_placements("prefill", mesh, strategy, params=pp,
+                          frames=_to_meta(pre["frames"]),
+                          enc_kv=_to_meta(enc_kv))
+    assert enc["in"][0] == want_params
+    assert [enc["in"][1]] == ref(ref_batch_specs(pre["frames"], ref_mesh))
+    assert got(enc["out"]) == want_kv
+    assert got(step_placements("decode", mesh, strategy, cache=_to_meta(cache),
+                               enc_kv=_to_meta(enc_kv))["in"][3]) == want_kv
 
 
 def test_layer_dim_is_never_sharded():

@@ -2,14 +2,14 @@
 each step of the slice's families as a DTensor program on torch's fake
 process group, over the production meshes, on meta tensors.
 
-* ``spmd_ok`` for every arch of the slice (dense, moe, ssm) on 16×16 and
-  2×16×16 under ``tp_fsdp`` (decode; prefill on 16×16; the train step for
-  one arch of each family in tests/test_torch_spmd_dryrun_train.py), and
-  on 16×16 under every strategy (decode);
-  ``collective_counts`` and ``collective_bytes`` filled for the
-  reference's five op types; ``state_bytes_per_device`` unchanged by the
-  SPMD run; the vlm, encoder-decoder and hybrid rows say that their SPMD
-  fields are not ported yet.
+* ``spmd_ok`` for every arch (dense, moe, ssm, vlm, encoder-decoder,
+  hybrid) on 16×16 and 2×16×16 under ``tp_fsdp`` (decode; prefill on
+  16×16, where K3's placement checks run in each prefill but rwkv6's; the
+  train step for one arch of each family in
+  tests/test_torch_spmd_dryrun_train.py), and on 16×16 under every
+  strategy (decode); ``collective_counts`` and ``collective_bytes``
+  filled for the reference's five op types; ``state_bytes_per_device``
+  unchanged by the SPMD run.
 * One layer's train step counted by hand: reduced smollm-360m with one
   layer (remat on, as ``make_train_step`` builds it) through
   ``spmd_run`` on a 2×2 fake mesh under ``tp_fsdp``, batch 4 × 32. Every
@@ -44,7 +44,7 @@ from pathlib import Path
 
 import pytest
 import torch
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun, train
@@ -55,8 +55,8 @@ from repro_torch.sharding import (STRATEGIES, MeshShape, batch_specs,
                                   port_param_specs, tree_placements)
 
 SLICE = ("smollm-360m", "llama3.2-3b", "granite-3-2b", "stablelm-3b",
-         "mixtral-8x22b", "kimi-k2-1t-a32b", "rwkv6-1.6b")
-NOT_PORTED = ("llava-next-34b", "seamless-m4t-large-v2", "hymba-1.5b")
+         "mixtral-8x22b", "kimi-k2-1t-a32b", "rwkv6-1.6b", "llava-next-34b",
+         "seamless-m4t-large-v2", "hymba-1.5b")
 MESHES = ("single_pod", "multi_pod")
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -110,12 +110,38 @@ def test_spmd_ok_under_every_strategy(strategy):
                                   strategy))
 
 
-def test_not_ported_families_say_so():
-    for arch in NOT_PORTED:
-        rec = dryrun.spmd_record(get_config(arch), "decode_32k",
-                                 make_production_mesh(), "tp_fsdp")
-        assert rec == {"spmd": dryrun.SPMD_NOT_PORTED}
-        assert "not ported yet" in rec["spmd"]
+# hymba's Mamba scan on 16×16: (x's placements, the state h's, A's
+# gradient placements) per shape. decode_32k's state [B 128, d 1600, n]
+# has the batch over data and d over model (cache_specs' sequence rule
+# reads its dim 2); long_500k's batch of 1 puts d over data; prefill and
+# train split the batch over data, A's gradient partial there
+SCAN_SPLITS = {
+    "decode_32k": ((Shard(0), Shard(2)), (Shard(0), Shard(1)),
+                   (Partial(), Shard(0))),
+    "long_500k": ((Shard(2), Replicate()), (Shard(1), Replicate()),
+                  (Shard(0), Replicate())),
+    "prefill_32k": ((Shard(0), Replicate()), (Shard(0), Replicate()),
+                    (Partial(), Replicate()))}
+
+
+@pytest.mark.parametrize("shape", sorted(SCAN_SPLITS))
+def test_hybrid_scan_splits_on_16x16(shape, monkeypatch):
+    """The per-rank Mamba scan takes the split its inputs name: the batch,
+    or d where the decode state is split there; A's gradient is partial
+    over a batch split."""
+    from repro_torch.models import ssm
+    seen, run = set(), ssm.on_shards
+
+    def spy(fn, out, *args, grad_placements=None):
+        seen.add((tuple(args[0].placements), tuple(args[5].placements),
+                  tuple(grad_placements[4])))
+        return run(fn, out, *args, grad_placements=grad_placements)
+
+    monkeypatch.setattr(ssm, "on_shards", spy)
+    rec = dryrun.spmd_record(get_config("hymba-1.5b"), shape,
+                             make_production_mesh(), "tp_fsdp")
+    _check(rec)
+    assert seen == {SCAN_SPLITS[shape]}, seen
 
 
 def test_hand_counted_projection_on_2x2():
@@ -228,20 +254,27 @@ def test_hand_counted_layer_train_step_on_2x2(monkeypatch):
     assert counts["all-to-all"]
 
 
-def test_layer_line_holds_at_a_fourth_depth():
-    """rwkv6's train step: the line through 2 and 3 layers equals a run at
-    4 layers exactly, counts and bytes (each layer after the first adds
-    the same program)."""
-    import dataclasses
-    cfg = get_config("rwkv6-1.6b")
+@pytest.mark.parametrize("arch,shape,at", (
+    ("rwkv6-1.6b", "train_4k", (4, 0)),
+    ("seamless-m4t-large-v2", "prefill_32k", (3, 3))))
+def test_layer_line_holds_at_a_fourth_depth(arch, shape, at):
+    """The line through the probe depths equals a run at one more depth
+    exactly, counts and bytes (each layer after the first adds the same
+    program): rwkv6's train step at 4 layers; seamless's prefill (its
+    encoder and the cross attention's K/V) at 3 + 3, a line in each of
+    its stacks through (2, 2), (3, 2) and (2, 3)."""
+    cfg = get_config(arch)
+    depths = dryrun._probe_depths(cfg)
     with dryrun.fake_group():
         mesh = dryrun.fake_mesh(make_production_mesh())
-        runs = {L: dryrun.spmd_run(dataclasses.replace(cfg, n_layers=L),
-                                   "train_4k", mesh, "tp_fsdp")
-                for L in (2, 3, 4)}
+        runs = {d: dryrun.spmd_run(dataclasses.replace(
+            cfg, n_layers=d[0], encoder_layers=d[1]), shape, mesh, "tp_fsdp")
+            for d in (*depths, at)}
+    deeper = dataclasses.replace(cfg, n_layers=at[0], encoder_layers=at[1])
     for field in ("counts", "bytes"):
-        line = dryrun._linear([(2, runs[2][field]), (3, runs[3][field])], 4)
-        assert line == runs[4][field], field
+        line = dryrun._extrapolated(depths, [runs[d][field] for d in depths],
+                                    deeper)
+        assert line == runs[at][field], field
 
 
 def test_cli_rows_and_fake_group_ends(tmp_path):
@@ -253,7 +286,7 @@ def test_cli_rows_and_fake_group_ends(tmp_path):
     with open(out) as f:
         rows = {r["arch"]: r for r in json.load(f)}
     _check(rows["smollm-360m"])
-    assert rows["hymba-1.5b"]["spmd"] == dryrun.SPMD_NOT_PORTED
+    _check(rows["hymba-1.5b"])
     assert not torch.distributed.is_initialized()
 
 

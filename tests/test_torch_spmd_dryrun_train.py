@@ -1,6 +1,7 @@
 """The dry run's SPMD fields for the train step
-(``repro_torch.launch.dryrun.spmd_record``): one arch of each family of
-the slice (dense smollm-360m, moe mixtral-8x22b, ssm rwkv6-1.6b) at
+(``repro_torch.launch.dryrun.spmd_record``): one arch of each family
+(dense smollm-360m, moe mixtral-8x22b, ssm rwkv6-1.6b, vlm
+llava-next-34b, encoder-decoder seamless-m4t-large-v2, hybrid hymba-1.5b) at
 ``train_4k`` as a DTensor program on torch's fake process group over
 16×16 and 2×16×16 under ``tp_fsdp``, on meta tensors: ``spmd_ok``, and
 the collectives of ZeRO-3 with tensor parallelism (parameters gathered,
@@ -13,7 +14,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
-TRAIN_ARCHS = ("smollm-360m", "mixtral-8x22b", "rwkv6-1.6b")
+TRAIN_ARCHS = ("smollm-360m", "mixtral-8x22b", "rwkv6-1.6b",
+               "llava-next-34b", "seamless-m4t-large-v2", "hymba-1.5b")
 MESHES = ("single_pod", "multi_pod")
 
 

@@ -10,11 +10,13 @@ For each fault it copies ``src/`` and ``chip_smoke.py`` into
 the copy,
 runs ``chip_smoke.py --phases <phase>`` there for each phase the fault
 touches (the copy builds its own kernels), and prints, as one JSON line
-per run, what the checks read. The phase ``spmd_cpu`` runs on the CPU
-instead: the two programs of ``tests/test_torch_spmd.py`` (the
-reference's sharded step on four forced host devices, the port's on four
-gloo ranks) in the copy, and every one of that file's readings, over its
-limit (``--faults sound_spmd`` plants nothing, for the sound readings).
+per run, what the checks read. The phases ``spmd_cpu`` and
+``spmd_families_cpu`` run on the CPU instead: the two programs of
+``tests/test_torch_spmd.py`` or ``tests/test_torch_spmd_families.py``
+(the reference's sharded step on four forced host devices, the port's on
+four gloo ranks) in the copy, and every one of that file's readings, over
+its limit (``--faults sound_spmd`` and ``sound_spmd_families`` plant
+nothing, for the sound readings).
 What ``chip_smoke.py`` reads: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
@@ -183,6 +185,16 @@ FAULTS = {
         "                                  grad.placements)], run_check=False)\n"
         "    return grad.redistribute(grad.device_mesh, placements)\n",
         ("spmd_cpu",)),
+    # the hybrid's Mamba scan on a mesh (models/ssm.py, per rank in
+    # local_map), held on the CPU to the reference's sharded step
+    # (tests/test_torch_spmd_families.py, four gloo ranks; phase
+    # "spmd_families_cpu"): A's gradient over the batch split taken as
+    # replicated, where each rank's is its rows' partial sum
+    "hybrid_scan_A_grad_not_partial": (
+        "src/repro_torch/models/ssm.py",
+        "    a_grad = tuple(Partial() if r == \"batch\" else p for r, p in "
+        "zip(roles, a))\n",
+        "    a_grad = a\n", ("spmd_families_cpu",)),
     # the DecoderLM train step, planted on the card side only (the launch
     # phase holds it to the same step on the CPU)
     "swiglu_w1_w3_swapped_on_card": (
@@ -192,7 +204,11 @@ FAULTS = {
         "    h = F.silu(x @ w1) * (x @ w3)\n", ("launch",)),
 }
 # the sound tree through a phase (nothing planted): each must pass
-SOUND = {"sound_spmd": (None, None, None, ("spmd_cpu",))}
+SOUND = {"sound_spmd": (None, None, None, ("spmd_cpu",)),
+         "sound_spmd_families": (None, None, None, ("spmd_families_cpu",))}
+# a CPU phase -> the test file whose two programs it runs
+CPU_PHASES = {"spmd_cpu": "test_torch_spmd",
+              "spmd_families_cpu": "test_torch_spmd_families"}
 FAULTS.update(SOUND)
 KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "logit_mean", "finite", "ms", "library_ms", "k3_launches", "k3_vs_einsum",
@@ -238,12 +254,14 @@ def plant(name: str) -> Path:
     return copy_tree(ROOT / "build" / "planted" / name, path, sound, faulty)
 
 
-def run_spmd_cpu(name: str) -> dict:
-    """The two programs of tests/test_torch_spmd.py in the planted copy,
-    and that file's readings of their results."""
+def run_spmd_cpu(name: str, phase: str) -> dict:
+    """The two programs of the phase's test file (tests/test_torch_spmd.py
+    or tests/test_torch_spmd_families.py) in the planted copy, and that
+    file's readings of their results."""
+    import importlib
     import tempfile
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
-    import test_torch_spmd as spmd
+    spmd = importlib.import_module(CPU_PHASES[phase])
     tree = plant(name)
     out = tempfile.mkdtemp(prefix="planted_spmd_")
     procs = spmd.start(out, tree)
@@ -251,18 +269,18 @@ def run_spmd_cpu(name: str) -> dict:
     failed = {role: logs[role][-2000:] for role, p in procs.items()
               if p.returncode != 0}
     if failed:
-        return {"fault": name, "phase": "spmd_cpu", "rc": 1, "read": [],
+        return {"fault": name, "phase": phase, "rc": 1, "read": [],
                 "error": json.dumps(failed)[:2000]}
     read = spmd.readings(spmd.load(out))
     bad = sorted(k for k, v in read.items() if not v <= 1.0)
-    return {"fault": name, "phase": "spmd_cpu", "rc": 1 if bad else 0,
+    return {"fault": name, "phase": phase, "rc": 1 if bad else 0,
             "read": read, "over_limit": bad,
             "worst": max(read.values()), "error": None}
 
 
 def run(name: str, phase: str) -> dict:
-    if phase == "spmd_cpu":
-        return run_spmd_cpu(name)
+    if phase in CPU_PHASES:
+        return run_spmd_cpu(name, phase)
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase],
                           cwd=plant(name), capture_output=True, text=True,
                           timeout=900)
