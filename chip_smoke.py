@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a host with a CUDA device. It builds
 the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, all started together) and then runs eighteen phases, each
+source, all started together) and then runs nineteen phases, each
 printing JSON lines:
 
 1. ``env`` — the card (``nvidia-smi`` name and power limit), torch and
@@ -250,6 +250,27 @@ printing JSON lines:
    the mesh route's prefill and read after it (K3 once a layer: llama 8,
    llava 2, seamless's encoder 4, hymba 4) and after its decode steps;
    prefill ms and decode tokens/s of both routes (``spmd`` line).
+   First, before NCCL starts, the dry run's prediction of smollm-360m's
+   train step (``launch.dryrun.step_cost``: batch 8 x seq 2048, the 1×1
+   mesh, ``tp_fsdp``; meta tensors on a fake process group), and after the
+   train cases the card's own reading of that step (``spmd_memory``: the
+   bytes of its parameters, AdamW state and batch, and the most bytes
+   allocated over one step with the stats reset once they are resident):
+   the ``cost`` line, its FLOP count over 989.4 TFLOP/s no more than the
+   median step, ``argument_size`` and ``peak_size`` within ``COST_TOL``,
+   the byte count over 3.35 TB/s beside the step (an H100 80GB HBM3's
+   dense bf16 peak and memory rate at a 700 W power limit,
+   ``core.profiles``).
+19. ``sites`` — FedZero scheduling sites of H100 cards profiled from the
+   dry run (``SITES``): ``train_4k`` × ``single_pod`` records of
+   smollm-360m, llama3.2-3b and kimi-k2-1t-a32b (full configs on meta
+   tensors over the fake 16×16 mesh, ``dryrun_one``), three sites of 64
+   cards each (``core.registry_from_roofline``), and
+   tests/test_pod_sites.py's FedZero set-up (``global``, n 5, d_max 60,
+   20 hours) on ``cuda``, K1/K2's counts set to 0 just before and read
+   just after, then on NumPy: rounds and total energy identical, kimi's δ
+   and smollm's capacity each more than 5× the other's, a kernel
+   launched (the dense store: K2); the phase's seconds.
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -262,13 +283,15 @@ a checkout, it exits non-zero and prints no result.
 ``--phases`` runs only the named phases of ``kernels`` (2), ``ops`` (3),
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
 ``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13),
-``launch`` (14), ``vlm`` (15), ``encdec`` (16), ``hybrid`` (17) and
-``spmd`` (18), after ``env``, and then stops without the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
+``launch`` (14), ``vlm`` (15), ``encdec`` (16), ``hybrid`` (17),
+``spmd`` (18) and ``sites`` (19), after ``env``, and then stops without
+the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
 the quick check of a new K3, K4 or K5 build, ``--phases service`` runs the
 service alone, ``--phases train`` the federated training alone,
 ``--phases launch`` the DecoderLM training, checkpoint and serving alone,
 ``--phases vlm``, ``--phases encdec`` and ``--phases hybrid`` llava,
-seamless and hymba alone, ``--phases spmd`` the sharded step alone.
+seamless and hymba alone, ``--phases spmd`` the sharded step alone,
+``--phases sites`` the pod sites alone.
 """
 from __future__ import annotations
 
@@ -434,8 +457,11 @@ HYBRID_F32_TOL = 1e-3
 # (benchmarks/service_load.py:78-93, run_service_load at :111-131): the
 # sparse, greedy FedZero service over the "global" scenario, one day,
 # seed 0, no trainer, no event log; the clock advanced WARMUP_STEPS into
-# daylight and one admission priced before the measured window
-SERVICE = dict(clients=1_000_000, steps=15, churn=0.01, admits_per_step=1,
+# daylight and one admission priced before the measured window. The
+# window was cut from 15 steps to 8 to keep the whole script inside its
+# time on the slower hosts (PERF.md §4); the faulted run's first crash
+# (round 4, worker 0) still falls in it
+SERVICE = dict(clients=1_000_000, steps=8, churn=0.01, admits_per_step=1,
                quotes_per_step=250, n=10, d_max=30, seed=0, warmup_steps=240)
 SERVICE_FAULTS = ("crash=0.005,dropout=0.05,straggler=0.05,delay=0.2,"
                   "loss=0.05,seed=64")
@@ -511,9 +537,27 @@ SPMD = dict(train=(dict(arch="smollm-360m", n_layers=None, batch=8,
                    ("rwkv6-1.6b", 8), ("llava-next-34b", 2),
                    ("seamless-m4t-large-v2", 4), ("hymba-1.5b", 4)),
             infer_batch=4, prompt=2048, gen=16, frames=4096)
+# the dry run's per-device cost of smollm-360m's train step on the 1×1
+# mesh (launch.dryrun.step_cost at SPMD["train"][0]'s batch and seq)
+# against the card: the FLOP count over the card's dense bf16 peak no
+# more than the measured median step; the predicted argument_size within
+# COST_TOL of the bytes the card holds for the parameters, AdamW state and
+# batch; the predicted peak_size within COST_TOL of the most bytes the
+# card allocates over one step (stats reset once the arguments are
+# resident, those bytes counted in)
+COST_TOL = {"argument_size": 0.01, "peak_size": 0.15}
+# FedZero scheduling sites of H100 cards profiled from the dry run:
+# train_4k × single_pod records of three archs (full configs, meta tensors,
+# the fake 16×16 mesh), 3 sites each of 64 cards
+# (core.registry_from_roofline), then tests/test_pod_sites.py's FedZero
+# set-up (global, n 5, d_max 60, 20 hours, evaluated every round) with the
+# grid sized for 64 cards of 700 W, on cuda and on NumPy
+SITES = dict(archs=("smollm-360m", "llama3.2-3b", "kimi-k2-1t-a32b"),
+             shape="train_4k", n_sites_per_arch=3, chips_per_site=64,
+             hours=20, n=5, d_max=60, k=0.01, ratio=5)
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
           "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
-          "hybrid", "spmd")
+          "hybrid", "spmd", "sites")
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -3136,15 +3180,105 @@ def spmd_infer(torch, mesh, arch, n_layers):
                 finite=all_finite(torch, *a["logits"], *a["enc_kv"]))
 
 
+def spmd_memory(torch, mesh, spec):
+    """The bytes the card holds for ``spec``'s train step's arguments
+    (parameters, AdamW state and batch, as DTensors on ``mesh``) and the
+    most bytes allocated over one step: the step's model is built on the
+    meta device (its weights are the arguments alone, as in the dry run),
+    the stats are reset once the arguments are resident, and the peak is
+    counted above what was resident then, the arguments' bytes added."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import step_placements
+    dev = torch.device("cuda:0")
+    cfg = get_config(spec["arch"])
+    model = build_model(cfg, use_kernels=False, device=dev).init(
+        torch.Generator(dev).manual_seed(SPMD["seed"]))
+    p0 = {n: t.detach() for n, t in model.named_parameters()}
+    del model
+    _, opt, step = steps.make_train_step(cfg, device="meta", mesh=mesh)
+    s0 = opt.init(p0)
+    b0 = synthetic_lm_batch(np.random.default_rng(SPMD["seed"]),
+                            spec["batch"], spec["seq"], cfg.vocab, dev)
+    places = step_placements("train", mesh, params=p0, opt_state=s0,
+                             batch=b0)["in"]
+    args = tuple(train.distribute(t, pl, mesh)
+                 for t, pl in zip((p0, s0, b0), places))
+    del p0, s0, b0
+    held = sum(t.to_local().numel() * t.to_local().element_size()
+               for t in tree_leaves(args))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out[2].full_tensor()))
+    del out, args
+    torch.cuda.empty_cache()
+    return dict(argument_bytes=held, resident_at_reset=base,
+                max_memory_allocated=peak, step_peak=peak - base + held,
+                finite=finite)
+
+
+def spmd_cost(torch, pred, measured, step_ms):
+    """The ``cost`` line: the dry run's prediction ``pred`` of the train
+    step against the card's ``measured`` bytes and its step times."""
+    from repro_torch.core.profiles import GPU_HBM_BW, GPU_PEAK_FLOPS
+    step_s = statistics.median(step_ms) / 1e3
+    ma = pred["memory_analysis"]
+    got = {"argument_size": abs(ma["argument_size"]
+                                - measured["argument_bytes"])
+           / measured["argument_bytes"],
+           "peak_size": abs(ma["peak_size"] - measured["step_peak"])
+           / measured["step_peak"]}
+    line = dict(
+        arch=SPMD["train"][0]["arch"], batch=SPMD["train"][0]["batch"],
+        seq=SPMD["train"][0]["seq"], mesh=[1, 1], strategy="tp_fsdp",
+        predicted={k: pred[k] for k in (
+            "flops_per_device", "matmul_flops_per_device",
+            "bytes_per_device", "memory_analysis", "cost_method",
+            "memory_method", "spmd_s")},
+        measured=measured, step_ms_mesh=step_ms, median_step_s=step_s,
+        flop_bound_s=pred["flops_per_device"] / GPU_PEAK_FLOPS,
+        flop_bound_over_step=pred["flops_per_device"] / GPU_PEAK_FLOPS
+        / step_s,
+        byte_time_s=pred["bytes_per_device"] / GPU_HBM_BW,
+        byte_time_over_step=pred["bytes_per_device"] / GPU_HBM_BW / step_s,
+        rel_err=got, limits=COST_TOL,
+        err_over_limit={k: v / COST_TOL[k] for k, v in got.items()})
+    emit("cost", **line)
+    require(line["flop_bound_s"] <= step_s,
+            f"cost: the FLOP bound {line['flop_bound_s']} s is above the "
+            f"measured step {step_s} s: the count is too high")
+    for k, v in got.items():
+        require(not v > COST_TOL[k], f"cost: predicted {k} {ma[k]} is "
+                f"{v} off the card's, over {COST_TOL[k]}")
+    require(measured["finite"], "cost: the measured step's loss not finite")
+    return line
+
+
 def run_spmd(torch):
-    """Phase 18: NCCL at world size 1 and the 1×1 mesh of ``fit_mesh``;
-    smollm-360m's and hymba-1.5b's DTensor train steps against the plain
-    step; llama3.2-3b, mixtral-8x22b, rwkv6-1.6b, llava-next-34b,
+    """Phase 18: the dry run's cost of smollm-360m's train step on the 1×1
+    mesh (before NCCL starts: the dry run's fake group needs no other);
+    NCCL at world size 1 and the 1×1 mesh of ``fit_mesh``; smollm-360m's
+    and hymba-1.5b's DTensor train steps against the plain step, and
+    smollm's arguments and peak memory a step against the prediction;
+    llama3.2-3b, mixtral-8x22b, rwkv6-1.6b, llava-next-34b,
     seamless-m4t-large-v2 and hymba-1.5b (each cut in depth) on the mesh
     route."""
     import torch.distributed as dist
-    from repro_torch.launch import train
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, train
     t0 = time.perf_counter()
+    costed = SPMD["train"][0]
+    pred = dryrun.step_cost(get_config(costed["arch"]), "train",
+                            costed["batch"], costed["seq"], (1, 1), "tp_fsdp")
     mesh = train.fit_mesh(torch.device("cuda:0"))
     try:
         group = dict(backend=dist.get_backend(),
@@ -3159,6 +3293,7 @@ def run_spmd(torch):
             trained[spec["arch"]] = spmd_train(torch, mesh, spec)
             trained[spec["arch"]]["s"] = time.perf_counter() - t
             emit("spmd_case", kind="train", **trained[spec["arch"]])
+        measured = spmd_memory(torch, mesh, costed)
         infer = {}
         for arch, n_layers in SPMD["infer"]:
             t = time.perf_counter()
@@ -3195,7 +3330,101 @@ def run_spmd(torch):
             "spmd: K5 never launched on mixtral's mesh route")
     require(infer["rwkv6-1.6b"]["k4_launches"] > 0,
             "spmd: K4 never launched on rwkv6's mesh route")
-    return {"train": trained, "infer": infer}
+    cost = spmd_cost(torch, pred, measured,
+                     trained[costed["arch"]]["step_ms_mesh"])
+    return {"train": trained, "infer": infer, "cost": cost}
+
+
+# --------------------------------------------------------------------------
+# phase 19: FedZero scheduling sites of H100 cards profiled by the dry run
+
+
+def sites_run(torch, rows, bk):
+    """tests/test_pod_sites.py's FedZero set-up over the sites of
+    ``rows`` (the registry made anew from them) on backend ``bk``."""
+    from repro_torch.core import (FLSimulation, ProxyTrainer, make_strategy,
+                                  registry_from_roofline)
+    from repro_torch.core.profiles import GPU_CARD_W
+    from repro_torch.data.traces import make_scenario
+    S = SITES
+    reg = registry_from_roofline(rows, shape=S["shape"],
+                                 n_sites_per_arch=S["n_sites_per_arch"],
+                                 chips_per_site=S["chips_per_site"])
+    sc = make_scenario("global", n_clients=len(reg), days=1, seed=0,
+                       peak_w=S["chips_per_site"] * GPU_CARD_W * 1.5,
+                       backend=bk)
+    # the registry's power domains by name (nine sites fill nine of the
+    # scenario's ten: the tenth keeps its own name and has no site)
+    sc.domain_names = (list(reg.domains)
+                       + list(sc.domain_names)[len(reg.domains):])
+    strat = make_strategy("fedzero", reg, n=S["n"], d_max=S["d_max"], seed=0,
+                          backend=bk)
+    sim = FLSimulation(reg, sc, strat, ProxyTrainer(len(reg), k=S["k"]),
+                       eval_every=1)
+    t = time.perf_counter()
+    summary = sim.run(until_step=S["hours"] * 60)
+    if bk.name != "numpy":
+        torch.cuda.synchronize()
+    rounds = [(r.start_step, r.duration, r.contributor_idx.tolist(),
+               r.energy_used) for r in sim.results]
+    return reg, summary, rounds, time.perf_counter() - t
+
+
+def run_sites(torch, cuda_bk, host):
+    """Phase 19: train_4k × single_pod records of SITES' archs from the dry
+    run in process, the registry of their sites, and FedZero over them on
+    ``cuda`` (K1/K2's counts set to 0 just before, read just after) and
+    on NumPy: identical rounds and energy, and the reference test's site
+    ratios."""
+    from repro_torch.kernels import counter_hash as ch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    with dryrun.fake_group():
+        rows = [dryrun.dryrun_one(arch, SITES["shape"], "single_pod",
+                                  spmd=True, verbose=False)
+                for arch in SITES["archs"]]
+    records_s = time.perf_counter() - t0
+    ch.piece_window.launches = 0
+    ch.forecast_z.launches = 0
+    reg, s_cuda, r_cuda, cuda_s = sites_run(torch, rows, cuda_bk)
+    launches = {"piece_window": ch.piece_window.launches,
+                "forecast_z": ch.forecast_z.launches}
+    _, s_np, r_np, numpy_s = sites_run(torch, rows, host)
+    per = {}
+    for c in reg.clients.values():
+        arch = c.name.split("-", 1)[1].rsplit("-", 1)[0]
+        per.setdefault(arch, {"delta_wmin_per_step": c.delta,
+                              "capacity_steps_per_min": c.m_max_capacity})
+    kimi, smol = per["kimi-k2-1t-a32b"], per["smollm-360m"]
+    line = dict(
+        archs=list(SITES["archs"]), sites=len(reg),
+        records={r["arch"]: {k: r[k] for k in (
+            "flops_per_device", "bytes_per_device", "memory_analysis",
+            "spmd_s", "run_s")} for r in rows},
+        records_s=records_s, per_arch=per,
+        delta_kimi_over_smollm=kimi["delta_wmin_per_step"]
+        / smol["delta_wmin_per_step"],
+        capacity_smollm_over_kimi=smol["capacity_steps_per_min"]
+        / kimi["capacity_steps_per_min"],
+        rounds=len(r_cuda), total_energy_wh=s_cuda["total_energy_wh"],
+        total_energy_wh_numpy=s_np["total_energy_wh"],
+        kernel_launches=launches, util_mode="dense", cuda_s=cuda_s,
+        numpy_s=numpy_s, s=time.perf_counter() - t0)
+    emit("sites", **line)
+    require(all(r["spmd_ok"] and r["shapes_ok"] for r in rows),
+            "sites: a dry-run record failed its shapes or placements")
+    require(r_cuda == r_np, "sites: cuda rounds differ from numpy rounds")
+    require(s_cuda["total_energy_wh"] == s_np["total_energy_wh"],
+            "sites: total energy differs")
+    require(len(r_cuda) >= 1 and s_cuda["total_energy_wh"] > 0,
+            f"sites: {len(r_cuda)} rounds, "
+            f"{s_cuda['total_energy_wh']} Wh")
+    require(line["delta_kimi_over_smollm"] > SITES["ratio"]
+            and line["capacity_smollm_over_kimi"] > SITES["ratio"],
+            "sites: kimi's δ or smollm's capacity not 5× the other's")
+    require(launches["piece_window"] + launches["forecast_z"] > 0,
+            f"sites: no kernel launched: {launches}")
+    return line
 
 
 def main(argv=None) -> int:
@@ -3290,6 +3519,8 @@ def main(argv=None) -> int:
         run_hybrid(torch)
     if "spmd" in phases:
         run_spmd(torch)
+    if "sites" in phases:
+        run_sites(torch, cuda_bk, host)
     if set(phases) != set(PHASES):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]

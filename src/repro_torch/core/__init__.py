@@ -10,7 +10,7 @@ from .strategies import (BaseStrategy, EnvView, FedZeroStrategy, OortStrategy,
                          RandomStrategy, UpperBoundStrategy, make_strategy)
 from .simulation import FLSimulation, execute_round
 from .trainers import ProxyTrainer, TorchTrainer
-from .profiles import (make_paper_registry, paper_profile, tpu_site_profile,
+from .profiles import (gpu_site_profile, make_paper_registry, paper_profile,
                        registry_from_roofline)
 from .experiment import (ExperimentConfig, FleetSection, RunSection,
                          ScenarioSection, ServiceSection, StrategySection,
@@ -27,7 +27,7 @@ __all__ = [
     "BaseStrategy", "EnvView", "FedZeroStrategy", "OortStrategy",
     "RandomStrategy", "UpperBoundStrategy", "make_strategy",
     "FLSimulation", "execute_round", "ProxyTrainer", "TorchTrainer",
-    "make_paper_registry", "paper_profile", "tpu_site_profile",
+    "make_paper_registry", "paper_profile", "gpu_site_profile",
     "registry_from_roofline",
     "ExperimentConfig", "ScenarioSection", "FleetSection", "StrategySection",
     "TrainerSection", "RunSection", "ServiceSection", "build_experiment",

@@ -1,10 +1,11 @@
 """Client hardware profiles.
 
 Paper Table 2 (downscaled T4 / V100 / A100 classes) for the FL simulation,
-plus TPU-pod profiles derived from the dry-run roofline for the production
-architectures: a "client" in the pod world is a site training one of the
-assigned architectures, its m_c (batches/timestep) and δ_c (energy/batch)
-computed from the compiled step's roofline time and chip power.
+plus the profiles of training sites of H100 cards derived from the dry
+run's per-device cost of the production architectures: a "client" in that
+world is a site training one of the assigned architectures, its m_c
+(batches/timestep) and δ_c (energy/batch) computed from the step's
+roofline time on the site's cards and their power.
 """
 from __future__ import annotations
 
@@ -78,24 +79,27 @@ def make_paper_registry(n_clients: int = 100, n_domains: int = 10,
 
 
 # ---------------------------------------------------------------------------
-# TPU-site profiles from the dry-run roofline
+# Sites of H100 cards, profiled from the dry run's per-device cost
 
 
-V5E_PEAK_FLOPS = 197e12     # bf16 FLOP/s per chip
-V5E_HBM_BW = 819e9          # bytes/s per chip
-V5E_CHIP_W = 250.0          # W per chip under load (site-configurable)
+# an NVIDIA H100 80GB HBM3 (SXM) at a 700 W power limit, its spec sheet
+GPU_PEAK_FLOPS = 989.4e12   # dense bf16 FLOP/s per card
+GPU_HBM_BW = 3.35e12        # bytes/s per card
+GPU_CARD_W = 700.0          # W per card under load (its power limit)
 
 
-def tpu_site_profile(flops_per_step: float, bytes_per_step: float,
+def gpu_site_profile(flops_per_step: float, bytes_per_step: float,
                      n_chips: int, batch_per_step: int,
-                     chip_watts: float = V5E_CHIP_W):
-    """(m_c batches/min, δ_c Wmin/batch) for a pod-slice FL site.
+                     chip_watts: float = None):
+    """(m_c batches/min, δ_c Wmin/batch) for a site of ``n_chips`` cards
+    drawing ``chip_watts`` each (default :data:`GPU_CARD_W`).
 
-    Step time = max(compute, memory) roofline term of the compiled
-    train_step; one "batch" here is one global training batch.
+    Step time = max(compute, memory) roofline term of the train step;
+    one "batch" here is one global training batch.
     """
-    t_compute = flops_per_step / (n_chips * V5E_PEAK_FLOPS)
-    t_memory = bytes_per_step / (n_chips * V5E_HBM_BW)
+    chip_watts = GPU_CARD_W if chip_watts is None else chip_watts
+    t_compute = flops_per_step / (n_chips * GPU_PEAK_FLOPS)
+    t_memory = bytes_per_step / (n_chips * GPU_HBM_BW)
     step_s = max(t_compute, t_memory)
     steps_per_min = 60.0 / step_s
     m_c = steps_per_min
@@ -103,11 +107,18 @@ def tpu_site_profile(flops_per_step: float, bytes_per_step: float,
     return m_c, delta
 
 
-def registry_from_roofline(roofline_json: str, shape: str = "train_4k",
+def registry_from_roofline(rows, shape: str = "train_4k",
                            n_sites_per_arch: int = 1, chips_per_site: int = 256,
                            seed: int = 0) -> ClientRegistry:
-    """Build an FL registry whose clients are pod-slice sites running the
-    assigned architectures, profiled from the dry-run roofline table.
+    """Build an FL registry whose clients are sites of H100 cards running
+    the assigned architectures, profiled from the dry run's records:
+    ``rows``, a list of them or the path of the JSON file the dry run
+    writes. Each ``shape`` × ``single_pod`` row gives ``n_sites_per_arch``
+    sites of ``chips_per_site`` cards from its ``flops_per_device`` and
+    ``bytes_per_device`` (:func:`gpu_site_profile`), in the reference's
+    arithmetic and draw order; as the reference does with its per-device
+    ``hlo_flops``, the per-device count is divided by the site's cards once
+    more.
 
     Array-first note: ``n_samples`` is now one batched ``integers`` draw
     instead of one scalar draw per site, so per-site values differ from
@@ -115,14 +126,16 @@ def registry_from_roofline(roofline_json: str, shape: str = "train_4k",
     distribution; nothing pins these values — unlike
     ``make_paper_registry``, whose draw order is golden-pinned).
     """
-    with open(roofline_json) as f:
-        rows = json.load(f)
+    if isinstance(rows, (str, bytes)) or hasattr(rows, "__fspath__"):
+        with open(rows) as f:
+            rows = json.load(f)
     rng = np.random.default_rng(seed)
     names, caps, deltas = [], [], []
     for row in rows:
         if row.get("shape") != shape or row.get("mesh") != "single_pod":
             continue
-        m_c, delta = tpu_site_profile(row["hlo_flops"], row["hlo_bytes"],
+        m_c, delta = gpu_site_profile(row["flops_per_device"],
+                                      row["bytes_per_device"],
                                       chips_per_site, 1)
         for s in range(n_sites_per_arch):
             names.append(f"site-{row['arch']}-{s}")
@@ -137,5 +150,5 @@ def registry_from_roofline(roofline_json: str, shape: str = "train_4k",
         m_min=1.0 * bpe, m_max=5.0 * bpe, n_samples=ns,
         domain_idx=np.arange(n) % 10,
         domain_names=[f"grid_{k}" for k in range(n_domains)],
-        names=names, max_output=chips_per_site * V5E_CHIP_W * 2,
+        names=names, max_output=chips_per_site * GPU_CARD_W * 2,
         batches_per_epoch=bpe)

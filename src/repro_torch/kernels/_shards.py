@@ -10,7 +10,59 @@ function cannot take is the caller's to refuse.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# the dry run's cost modes that are counting now (launch/dryrun.py), and
+# how deep in stand-ins the ops run: a stand-in's own ops are not counted,
+# the computation it stands for is charged in their place
+COSTS = {"modes": [], "quiet": 0}
+
+
+@contextlib.contextmanager
+def charged(cost):
+    """Within: the ops run are a stand-in's, not counted by the counting
+    cost modes, each of which is charged ``cost`` = (FLOPs, matmul-family
+    FLOPs, bytes) once instead."""
+    for mode in COSTS["modes"]:
+        mode.charge(*cost)
+    COSTS["quiet"] += 1
+    try:
+        yield
+    finally:
+        COSTS["quiet"] -= 1
+
+
+class _StandIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, costs, *inputs):
+        # an output no loss reads gets no zero gradient made for it
+        ctx.set_materialize_grads(False)
+        ctx.costs = costs
+        ctx.inputs = [(t.shape, t.dtype, t.device) for t in inputs]
+        with charged(costs[0]):
+            return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with charged(ctx.costs[1]):
+            return (None, None) + tuple(
+                torch.empty(s, dtype=d, device=dev) if need else None
+                for (s, d, dev), need in zip(ctx.inputs,
+                                             ctx.needs_input_grad[2:]))
+
+
+def stand_in(fn, count, *inputs):
+    """``fn(*inputs)``: a stand-in's few ops on meta tensors in place of a
+    loop over tokens. The cost modes count it as ``count(*inputs,
+    needs=...)`` gives the computation it stands for: ((FLOPs, matmul
+    FLOPs, bytes) forward, the same backward, for the inputs whose
+    gradients autograd takes, ``needs``). Under autograd the backward
+    gives each such input an empty gradient of its shape."""
+    needs = tuple(torch.is_grad_enabled() and t.requires_grad
+                  for t in inputs)
+    return _StandIn.apply(fn, count(*inputs, needs=needs), *inputs)
 
 
 def is_dtensor(x) -> bool:

@@ -312,14 +312,69 @@ def u_like(u, r):
     return u.redistribute(r.device_mesh, want)
 
 
+def plain_cost(r, k, v, w, u, needs=(False,) * 5):
+    """The dry run's count (``launch/dryrun.py``: FLOPs, matmul FLOPs,
+    bytes) of :func:`rwkv_scan_plain` on float32 inputs of these shapes
+    from a zero state, forward and backward: ((flops, matmul, bytes)
+    forward, the same backward), the backward from ``out`` alone (the
+    final state's gradient unused, as in a train step) with ``needs`` the
+    inputs whose gradients autograd takes: all five, or none.
+
+    Per token the forward multiplies k v^T, u (k v^T), adds the state, and
+    takes r's product with it (a copy of r's token, one ``bmm``), then
+    updates the state (a product and a sum); the outputs are stacked. The
+    backward per token: the product's two ``bmm`` (and a copy of the
+    output's gradient), u's and k's and v's products and reductions,
+    w's for every token but the last (whose state no output reads), a
+    token's gradient written into a whole [B, S, H, dh] zero tensor
+    (``select_backward``) and added to the ones before it, and the
+    state's gradient carried back (a product and a sum a token)."""
+    B, S, H, K = r.shape
+    f32 = 4
+    vec, M, HK, X = B * H * K, B * H * K * K, H * K, B * S * H * K
+    # r's token as the bmm takes it: a copy unless B, H or S is 1
+    cp = 2 * vec if (B > 1 and H > 1 and S > 1) else 0
+    fwd = (7 * S * M, 2 * S * M,
+           f32 * (S * (5 * vec + 12 * M + HK + cp) + 2 * S * vec + M))
+    if not any(needs):
+        return fwd, (0, 0, 0)
+    if not all(needs):
+        raise NotImplementedError(f"the scan's backward for gradients of "
+                                  f"{needs} (r, k, v, w, u) is not counted")
+    T = S
+    w_t, mid = max(T - 1, 0), max(T - 2, 0)   # tokens w and the state reach
+    flops = (4 * T * M                          # the product's two bmm
+             + 3 * T * M + (T - 1) * HK         # u: its products, its sums
+             + (T - 1) * X                      # r's gradients summed
+             + 4 * T * M + 2 * (T - 1) * X      # k's and v's
+             + 2 * w_t * M + max(w_t - 1, 0) * X  # w's
+             + 2 * mid * M                      # the state's, carried
+             + w_t * M)                         # k v^T's, summed
+    nbytes = (T * cp + 2 * T * (2 * vec + M)
+              + T * (2 * M + HK) + 3 * T * M + T * (M + HK)
+              + 3 * (T - 1) * HK
+              + T * (vec + X) + 3 * (T - 1) * X
+              + 2 * T * (2 * M + vec) + 2 * T * (M + vec)
+              + 2 * T * (vec + X) + 6 * (T - 1) * X
+              + w_t * (3 * M + M + vec + vec + X)
+              + 3 * max(w_t - 1, 0) * X
+              + mid * (2 * M + vec + 3 * M)
+              + 3 * w_t * M)
+    return fwd, (flops, 4 * T * M, f32 * nbytes)
+
+
 def _meta_scan(r, k, v, w, u):
     """The scan's stand-in on meta tensors: (out [B, S, H, dh], state
     [B, H, dh, dh]) float32, each a function of every input, so that a
-    meta run's autograd graph reaches them all; one op a call, where the
-    recurrence loops over the tokens."""
-    out = (r * k * v).float() * w * u
-    state = torch.einsum("bshk,bshv->bhkv", k.float() * w, v.float())
-    return out, state
+    meta run's autograd graph reaches them all; a few ops a call, where
+    the recurrence loops over the tokens, counted by the dry run as the
+    recurrence (:func:`plain_cost`)."""
+    def ops(r, k, v, w, u):
+        out = (r * k * v).float() * w * u
+        state = torch.einsum("bshk,bshv->bhkv", k.float() * w, v.float())
+        return out, state
+
+    return _shards.stand_in(ops, plain_cost, r, k, v, w, u)
 
 
 def on_mesh(scan, r, k, v, w, u, return_state=True):

@@ -70,10 +70,47 @@ An encoder-decoder's runs take a line in each stack, through (2, 2),
 (3, 2) and (2, 3) decoder and encoder layers. The hybrid's Mamba scan,
 rank-local like the kernels, is stood in for on meta tensors by a few
 ops of the same shapes (``models.ssm._meta_selective_scan``), so its
-train and prefill steps run at the shape's own sequence length. The
-reference's HLO FLOPs and bytes, memory analysis and compile times have
-no counterpart here. A step that fails is recorded as an error row, as the
-reference records a failure.
+train and prefill steps run at the shape's own sequence length.
+
+The per-device cost, the counterpart of the reference's ``hlo_flops``,
+``hlo_bytes`` and ``memory_analysis``, comes from the same runs: a
+``TorchDispatchMode`` (:func:`_collective_bytes_mode`) sees each rank's
+local ops (rank 0's shards) and counts, per device:
+
+* ``flops_per_device``: the matmul family (``mm``, ``bmm``, ``addmm``,
+  ``baddbmm``, convolutions, attention) by the formulas of
+  ``torch.utils.flop_counter`` (``matmul_flops_per_device`` alone, which
+  on a 1×1 mesh is ``step_flops``); as XLA's ``flops`` also counts
+  elementwise work, one FLOP per output element of every other arithmetic
+  op and one per input element of a reduction; views, copies and other
+  moves (:data:`MOVES`) and collectives none;
+* ``bytes_per_device``: per op that is not a view, the bytes of the
+  distinct input storages it reads and of its outputs: an eager, unfused
+  count of what the port's eager route moves, not XLA's ``bytes
+  accessed`` after fusion, and never to be read as equal to it;
+* ``memory_analysis``: the reference's keys per device, from the
+  lifetimes of the storages the ops make (a weakref per storage):
+  ``argument_size`` (the step's inputs, local shards: parameters, optimizer
+  state and batch; or parameters, tokens and cache), ``output_size``,
+  ``temp_size`` (the most bytes live at once that are neither inputs nor
+  outputs; remat's freed and recomputed activations and the tensors
+  ``redistribute`` makes and drops are temp) and ``peak_size`` (the most
+  bytes live at once, inputs included: what a card can check);
+* ``cost_method`` and ``memory_method``: counts and the argument and
+  output sizes take the probes' line over depth, as the collectives do;
+  temp and peak take it where a run one layer further lies on it (every
+  layer adding the same bytes), else a run of the whole depth.
+
+A stand-in is counted as the computation it stands for, by formula
+(``rwkv_scan.plain_cost``: the per-token recurrence;
+``ssm.selective_scan_cost``: the chunked Mamba loop), its backward too in
+a train step; its memory is the stand-in's own. K3 and K5 run their plain
+versions on meta, which compute what the reference's einsum route does.
+:func:`step_cost` gives these fields for any step (kind, batch, sequence,
+mesh). The reference's ``compile_s`` has no counterpart: ``spmd_s`` and
+``run_s`` stand there. A record made with ``spmd=False`` has no DTensor
+run and so no per-device cost, as its ``cost_method`` says. A step that
+fails is recorded as an error row, as the reference records a failure.
 """
 from __future__ import annotations
 
@@ -146,35 +183,237 @@ def _collective_kind(func):
     return None
 
 
+# ops that move or make data and compute nothing: no FLOPs, their bytes
+# counted (a factory that writes nothing, ``empty``, not even those)
+MOVES = frozenset((
+    "copy_", "_to_copy", "clone", "contiguous", "cat", "stack", "index",
+    "index_select", "gather", "embedding", "slice_scatter",
+    "select_scatter", "as_strided_scatter", "scatter", "fill_", "fill",
+    "zero_", "zeros", "zeros_like", "ones", "ones_like", "full",
+    "full_like", "new_zeros", "new_ones", "new_full", "scalar_tensor",
+    "arange", "constant_pad_nd", "repeat", "roll", "flip", "tril_indices",
+    "triu_indices", "masked_select", "index_put", "index_put_",
+    "_local_scalar_dense", "lift_fresh_copy", "select_backward",
+    "slice_backward", "as_strided_backward", "unfold_backward",
+    "diagonal_backward", "rand", "randn", "rand_like", "randn_like",
+    "randint", "normal_", "uniform_", "bernoulli_"))
+WRITES_NOTHING = frozenset(("empty", "empty_like", "empty_strided",
+                            "new_empty", "new_empty_strided"))
+# reductions: one FLOP per input element
+REDUCTIONS = frozenset((
+    "sum", "mean", "amax", "amin", "max", "min", "prod", "logsumexp",
+    "norm", "linalg_vector_norm", "var", "std", "var_mean", "std_mean",
+    "argmax", "argmin", "any", "all", "cumsum", "cumprod"))
+
+
+def _tensors(tree, out=None):
+    """The tensors of an op's arguments or result (lists, tuples, dicts)."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
+def _distinct_bytes(t) -> int:
+    """The bytes of ``t``'s distinct elements (a broadcast dim of stride 0
+    reads one)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
 def _collective_bytes_mode():
-    """A ``TorchDispatchMode`` that adds up, per op type, the bytes of each
-    collective's per-device result (an all-reduce twice). It lets DTensor
-    ops through first (``NotImplemented``), as ``CommDebugMode`` does, and
-    sees the collectives they become."""
+    """A ``TorchDispatchMode`` that counts a step's per-device work: it lets
+    DTensor ops through first (``NotImplemented``), as ``CommDebugMode``
+    does, and sees each rank-local op they become (the per-device program,
+    rank 0's shards). Once :meth:`hold` has registered the step's
+    arguments it counts only the ops on tensors of their device type (the
+    dry run's meta): DTensor's own bookkeeping on host tensors (the mesh's
+    ranks, offsets, cached from one layer to the next) is not the step's
+    work.
+
+    * ``counts``, ``bytes``: per op type, each collective and the bytes of
+      its per-device result (an all-reduce twice).
+    * ``flops``: per op, the matmul family (``mm``, ``bmm``, ``addmm``,
+      ``baddbmm``, convolutions, attention) by the formulas of
+      ``torch.utils.flop_counter`` (also in ``matmul_flops``); a
+      reduction (:data:`REDUCTIONS`) one per input element; a view, an op
+      of :data:`MOVES` or a collective none; any other op one per output
+      element.
+    * ``moved``: per op that is not a view (an op whose results alias its
+      inputs' storages without writing them), the bytes of its distinct
+      input storages (the distinct elements of the views it reads of each,
+      at most the storage) and of its outputs. Eager and unfused: what the
+      port's eager route moves, not a count after fusion.
+    * memory: each storage an op makes is live from that op until the
+      storage is freed (a weakref on it); :meth:`hold` registers the
+      step's arguments first, and :meth:`memory` gives, once the step's
+      outputs are known, ``argument_size``, ``output_size``,
+      ``temp_size`` (the most bytes live at once in storages that are
+      neither) and ``peak_size`` (the most bytes live at once, arguments
+      included).
+
+    A stand-in's ops (:func:`repro_torch.kernels._shards.stand_in`) are
+    not counted: the computation it stands for is charged instead."""
+    import weakref
+
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
 
-    class CollectiveBytes(TorchDispatchMode):
+    from repro_torch.kernels._shards import COSTS
+
+    class StepCost(TorchDispatchMode):
         def __init__(self):
             super().__init__()
             self.bytes = defaultdict(int)
             self.counts = defaultdict(int)
+            self.flops = self.matmul_flops = self.moved = 0
+            self._events = []         # (serial, +/- bytes), in order
+            self._live = {}           # storage -> (serial, bytes, weakref)
+            self._args = set()        # serials of the arguments' storages
+            self._arg_views = {}      # the arguments' tensors, distinct
+            self._end = None          # events of the step: those before
+            self._device = None       # the arguments' device type
+
+        def __enter__(self):
+            COSTS["modes"].append(self)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            COSTS["modes"].remove(self)
+            self._end = len(self._events)
+            return super().__exit__(*exc)
+
+        def charge(self, flops, matmul_flops, nbytes):
+            self.flops += flops
+            self.matmul_flops += matmul_flops
+            self.moved += nbytes
+
+        def _storage(self, t, argument=False):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key not in self._live:
+                serial = len(self._events)
+                n = st.nbytes()
+
+                def freed(_, key=key, serial=serial, n=n):
+                    if self._live.get(key, (None,))[0] == serial:
+                        del self._live[key]
+                        self._events.append((serial, -n))
+
+                self._live[key] = (serial, n, weakref.ref(st, freed))
+                self._events.append((serial, n))
+                if argument:
+                    self._args.add(serial)
+            return self._live[key][0]
+
+        def hold(self, *trees):
+            """Register the step's arguments (their local shards)."""
+            for t in map(_local, _tensors(trees)):
+                self._arg_views[_view_key(t)] = _distinct_bytes(t)
+                self._storage(t, argument=True)
+                self._device = t.device.type
+
+        def memory(self, outputs):
+            """The memory analysis, with the step's ``outputs``."""
+            outs = {}
+            for t in map(_local, _tensors(outputs)):
+                outs[_view_key(t)] = (self._storage(t), _distinct_bytes(t))
+            fixed = self._args | {s for s, _ in outs.values()}
+            live = temp = peak = tpeak = 0
+            for serial, n in self._events[:self._end]:
+                live += n
+                peak = max(peak, live)
+                if serial not in fixed:
+                    temp += n
+                    tpeak = max(tpeak, temp)
+            return {"argument_size": sum(self._arg_views.values()),
+                    "output_size": sum(n for _, n in outs.values()),
+                    "temp_size": tpeak, "peak_size": peak}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
             if isinstance(func, torch._ops.HigherOrderOperator):
-                return func(*args, **(kwargs or {}))
+                return func(*args, **kwargs)
             if any(t is DTensor for t in types):
                 return NotImplemented
-            out = func(*args, **(kwargs or {}))
+            out = func(*args, **kwargs)
+            if torch._C._get_dispatch_mode(_FAKE_KEY) is not None:
+                return out  # DTensor's propagation of shapes: no work
             kind = (_collective_kind(func) if func.namespace in COLLECTIVE_OPS
                     else None)
             if kind is not None:
                 n = out.numel() * out.element_size()
                 self.bytes[kind] += 2 * n if kind == "all-reduce" else n
                 self.counts[kind] += 1
+            results = _tensors(out)
+            if self._device is not None and not any(
+                    t.device.type == self._device
+                    for t in results + _tensors((args, kwargs))):
+                return out  # host bookkeeping, not the step's work
+            if not COSTS["quiet"]:
+                self._count(func, args, kwargs, out, results, kind)
+            for t in results:
+                self._storage(t)
             return out
 
-    return CollectiveBytes()
+        def _count(self, func, args, kwargs, out, results, kind):
+            ins = _tensors((args, {k: v for k, v in kwargs.items()
+                                   if k != "out"}))
+            read = defaultdict(dict)
+            for t in ins:
+                key = _view_key(t)
+                read[key[0]][key] = (_distinct_bytes(t),
+                                     t.untyped_storage().nbytes())
+            name = func._overloadpacket.__name__
+            if (not func._schema.is_mutable and results and all(
+                    t.untyped_storage()._cdata in read for t in results)):
+                return  # a view: it moves nothing
+            if name not in WRITES_NOTHING:
+                self.moved += sum(min(sum(b for b, _ in v.values()),
+                                      max(n for _, n in v.values()))
+                                  for v in read.values())
+                self.moved += sum(_distinct_bytes(t) for t in results)
+            packet = func._overloadpacket
+            if packet in flop_registry:
+                n = int(flop_registry[packet](*args, **kwargs,
+                                              out_val=out))
+                self.flops += n
+                self.matmul_flops += n
+            elif (kind is not None or func.namespace in COLLECTIVE_OPS
+                  or name in MOVES or name in WRITES_NOTHING):
+                return
+            elif name in REDUCTIONS:
+                self.flops += ins[0].numel() if ins else 0
+            else:
+                self.flops += sum(t.numel() for t in results)
+
+    return StepCost()
+
+
+_FAKE_KEY = torch._C._TorchDispatchModeKey.FAKE
+
+
+def _view_key(t):
+    """A tensor's storage and the view of it: (storage, offset, shape,
+    strides)."""
+    return (t.untyped_storage()._cdata, t.storage_offset(), tuple(t.shape),
+            t.stride())
+
+
+def _local(t):
+    """A DTensor's local shard, or the tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 _FAKE = {"mesh": None, "depth": 0}
@@ -231,10 +470,12 @@ def _placements(tree):
 
 
 def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
-    """One run of ``cfg``'s step for ``shape_name`` as a DTensor program on
-    ``mesh`` under ``strategy``, on meta tensors: whether its outputs came
-    out on the out-placements, and its collectives (counts and bytes per
-    op type, per device)."""
+    """One run of ``cfg``'s step for ``shape_name`` (a name of ``SHAPES``
+    or a dict of its keys) as a DTensor program on ``mesh`` under
+    ``strategy``, on meta tensors: whether its outputs came out on the
+    out-placements, its collectives (counts and bytes per op type, per
+    device) and its per-device cost (FLOPs, matmul FLOPs, bytes and the
+    memory analysis: :func:`_collective_bytes_mode`)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch.train import distribute
@@ -249,6 +490,7 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
                                  opt_state=state, batch=specs["batch"])
         args = tuple(distribute(t, pl, mesh) for t, pl in zip(
             (params, state, specs["batch"]), places["in"]))
+        counter.hold(args)
         with CommDebugMode() as comm, counter:
             out = step(*args)
         got = (_placements(out[0]), _placements(out[1]),
@@ -268,12 +510,14 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
         args = {n: distribute(inputs[n], pl, mesh) for n, pl in zip(
             names, step_placements("prefill", mesh, strategy,
                                    **inputs)["in"][1:]) if n in inputs}
+        counter.hold(list(model.parameters()), args)
         with CommDebugMode() as comm, counter:
             if "frames" in args:
-                enc_kv = step(args["frames"])
+                out = enc_kv = step(args["frames"])
             else:
-                logits, cache = step(args["tokens"], frontend_embeds=args.get(
-                    "frontend_embeds"))
+                out = logits, cache = step(
+                    args["tokens"], frontend_embeds=args.get(
+                        "frontend_embeds"))
         if "frames" in args:
             places = step_placements("prefill", mesh, strategy,
                                      frames=inputs["frames"], enc_kv=enc_kv)
@@ -294,8 +538,9 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
         enc_kv = () if "enc_kv" not in specs else (tuple(
             distribute(t.detach(), pl, mesh)
             for t, pl in zip(specs["enc_kv"], places["in"][3])),)
+        counter.hold(list(model.parameters()), cache, tokens, enc_kv)
         with CommDebugMode() as comm, counter:
-            logits, cache = step(cache, tokens, *enc_kv)
+            out = logits, cache = step(cache, tokens, *enc_kv)
         got = (tuple(logits.placements), _placements(cache))
     ok = got == tuple(places["out"])
     counts = {k: int(v) for k, v in counter.counts.items()}
@@ -304,7 +549,11 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
                              f"{comm.get_total_counts()} collectives, the "
                              f"byte counter {counts}")
     return {"ok": ok, "counts": counts,
-            "bytes": {k: int(v) for k, v in counter.bytes.items()}}
+            "bytes": {k: int(v) for k, v in counter.bytes.items()},
+            "cost": {"flops": counter.flops,
+                     "matmul_flops": counter.matmul_flops,
+                     "bytes": counter.moved},
+            "memory": counter.memory(out)}
 
 
 def dtensor_mesh_shape(mesh_shape, strategy: str):
@@ -362,17 +611,60 @@ def _extrapolated(depths, runs, cfg):
     return out
 
 
-def spmd_record(cfg, shape_name: str, mesh_shape, strategy: str) -> dict:
-    """The SPMD fields of one record (see the module's docstring)."""
+def _check_depth(cfg):
+    """The depth of the run that checks the memory's line: one layer past
+    the probes in each stack."""
+    b = PROBE_LAYERS[1] + 1
+    return (b, b) if cfg.encoder_layers > 0 else (b, 0)
+
+
+def _memory(cfg, depths, runs, run_at):
+    """(memory analysis, method) at ``cfg``'s depths: the line through the
+    probes where a run one layer further (:func:`_check_depth`) lies on
+    it, every layer adding the same bytes (argument and output sizes, sums
+    over the layers' tensors, always do); else a run of the whole depth
+    (``run_at(depth)``)."""
+    full = (cfg.n_layers, cfg.encoder_layers)
+    mems = dict(zip(depths, (r["memory"] for r in runs)))
+    if full in mems:
+        return mems[full], "the run at full depth"
+    line = _extrapolated(depths, list(mems.values()), cfg)
+    check = _check_depth(cfg)
+    at = run_at(check)["memory"]
+    if check == full:
+        return at, "the run at full depth"
+    want = _extrapolated(depths, list(mems.values()), dataclasses.replace(
+        cfg, n_layers=check[0], encoder_layers=check[1]))
+    probes = ", ".join(f"({L}, {E})" if cfg.encoder_layers else str(L)
+                       for L, E in depths)
+    shown = (f"({check[0]}, {check[1]})" if cfg.encoder_layers
+             else str(check[0]))
+    if at == want:
+        return line, (f"line through the runs at {probes}, on it at "
+                      f"{shown}")
+    whole = run_at(full)["memory"]
+    off = {k: at[k] - want[k] for k in at if at[k] != want[k]}
+    return whole, (f"a run of the whole depth: the run at {shown} is off "
+                   f"the line through {probes} by {off} bytes")
+
+
+def spmd_record(cfg, shape_name, mesh_shape, strategy: str) -> dict:
+    """The SPMD fields of one record (see the module's docstring), for
+    ``shape_name`` (a name of ``SHAPES`` or a dict of its keys)."""
     t = time.perf_counter()
     depths = _probe_depths(cfg)
     with fake_group():
         mesh = fake_mesh(dtensor_mesh_shape(mesh_shape, strategy))
-        runs = [spmd_run(dataclasses.replace(cfg, n_layers=L,
-                                             encoder_layers=E),
-                         shape_name, mesh, strategy) for L, E in depths]
+
+        def run_at(depth):
+            return spmd_run(dataclasses.replace(
+                cfg, n_layers=depth[0], encoder_layers=depth[1]),
+                shape_name, mesh, strategy)
+
+        runs = [run_at(d) for d in depths]
+        memory, memory_method = _memory(cfg, depths, runs, run_at)
     out = {field: _extrapolated(depths, [r[field] for r in runs], cfg)
-           for field in ("counts", "bytes")}
+           for field in ("counts", "bytes", "cost")}
     if cfg.encoder_layers > 0:
         method = (f"runs at {', '.join(f'({L}, {E})' for L, E in depths)} "
                   "decoder and encoder layers, linear in each")
@@ -383,13 +675,25 @@ def spmd_record(cfg, shape_name: str, mesh_shape, strategy: str) -> dict:
     if run_on != mesh_shape:
         method += (f"; on {'x'.join(map(str, run_on.axis_sizes))} "
                    "(pod and data as one axis)")
+    cost_method = (f"rank 0's local ops ({method}): matmul FLOPs by "
+                   "torch.utils.flop_counter's formulas, one a reduction's "
+                   "input element and any other arithmetic op's output "
+                   "element; bytes read and written per eager op, unfused")
     if cfg.family == "ssm":
         method += "; the rank-local scan stood in for on meta tensors"
+        cost_method += ("; the scan counted as its per-token loop "
+                        "(rwkv_scan.plain_cost)")
     elif cfg.hybrid:
         method += "; the rank-local Mamba scan stood in for on meta tensors"
+        cost_method += ("; the Mamba scan counted as its loop "
+                        "(ssm.selective_scan_cost)")
     if not cfg.is_attention_free and input_specs(cfg, shape_name)[0] != \
             "train":
         method += "; the rank-local kernels' plain versions on meta tensors"
+        cost_method += "; K3 and K5 counted as their plain versions"
+    if cfg.family == "ssm" or cfg.hybrid:
+        memory_method += ("; the scan's stand-in holds its outputs, not "
+                          "the loop's per-token states")
     return {"spmd_ok": all(r["ok"] for r in runs),
             "collective_counts": {k: out["counts"].get(k, 0)
                                   for k in COLLECTIVES},
@@ -397,7 +701,26 @@ def spmd_record(cfg, shape_name: str, mesh_shape, strategy: str) -> dict:
                                  for k in COLLECTIVES},
             "collective_bytes_total": sum(out["bytes"].values()),
             "spmd_method": method,
+            "flops_per_device": out["cost"]["flops"],
+            "matmul_flops_per_device": out["cost"]["matmul_flops"],
+            "bytes_per_device": out["cost"]["bytes"],
+            "memory_analysis": {k: memory[k] for k in (
+                "argument_size", "output_size", "temp_size", "peak_size")},
+            "cost_method": cost_method,
+            "memory_method": memory_method,
             "spmd_s": round(time.perf_counter() - t, 2)}
+
+
+def step_cost(cfg, kind: str, batch: int, seq: int, mesh_shape=(1, 1),
+              strategy: str = "tp_fsdp") -> dict:
+    """The per-device cost of any step of ``cfg`` (``kind`` "train",
+    "prefill" or "decode", at ``batch`` × ``seq``) as a DTensor program on
+    ``mesh_shape`` (a ``MeshShape``, or (data, model) sizes) under
+    ``strategy``: the SPMD fields of a record (:func:`spmd_record`)."""
+    if not isinstance(mesh_shape, MeshShape):
+        mesh_shape = MeshShape(("data", "model"), tuple(mesh_shape))
+    return spmd_record(cfg, {"kind": kind, "seq": seq, "batch": batch},
+                       mesh_shape, strategy)
 
 
 def through(points, S):
@@ -449,7 +772,6 @@ def _run_step(cfg, shape_name, kind, specs):
             model.use_kernels = False
             if cfg.encoder_layers > 0:
                 enc_kv = step(specs["frames"])
-                ok = _same(enc_kv, model.precompute_enc_kv(specs["frames"]))
             else:
                 # the cache holds the shape's seq positions: a vlm's
                 # frontend embeddings and its tokens
@@ -467,6 +789,10 @@ def _run_step(cfg, shape_name, kind, specs):
             logits, cache = step(specs["cache"], specs["tokens"], *enc_kv)
             ok = (logits.shape == (B, 1, cfg.vocab_padded)
                   and _same(tuple(cache), want))
+    if kind == "prefill" and cfg.encoder_layers > 0:
+        # the cross K/V of the frames themselves, outside the count
+        with torch.no_grad():
+            ok = _same(enc_kv, model.precompute_enc_kv(specs["frames"]))
     return fc.get_total_flops(), ok, opt_name
 
 
@@ -518,8 +844,9 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
                verbose: bool = True, spmd: bool = False) -> dict:
     """One record. ``steps`` caches :func:`step_record` by (arch, shape):
     the step's run does not depend on the mesh or the strategy. ``spmd``
-    adds the SPMD fields (:func:`spmd_record`; the command line does by
-    default)."""
+    adds the SPMD fields and the per-device cost (:func:`spmd_record`;
+    the command line does by default); without it ``cost_method`` says
+    that the record has no per-device cost."""
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi_pod"))
     cfg = get_config(arch)
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
@@ -534,10 +861,16 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
     record.update(steps[arch, shape_name])
     if spmd:
         record.update(spmd_record(cfg, shape_name, mesh, strategy))
+    else:
+        record["cost_method"] = ("none: no DTensor run (spmd=False), so no "
+                                 "per-device cost")
     if verbose:
         coll = ("" if "spmd_ok" not in record else
                 f", spmd_ok {record['spmd_ok']}, coll/dev "
-                f"{record['collective_bytes_total']:.3e} B")
+                f"{record['collective_bytes_total']:.3e} B, flops/dev "
+                f"{record['flops_per_device']:.3e}, bytes/dev "
+                f"{record['bytes_per_device']:.3e}, peak/dev "
+                f"{record['memory_analysis']['peak_size'] / 2**30:.2f} GiB")
         print(f"[dryrun] {arch} × {shape_name} × {mesh_kind} ({strategy}): "
               f"flops {record['step_flops']:.3e} ({record['flops_method']}), "
               f"state/dev {record['state_bytes_per_device'] / 2**30:.2f} GiB, "

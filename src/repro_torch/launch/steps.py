@@ -30,8 +30,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import (SHAPES, ModelConfig, build_model,
+from repro_torch.models import (ModelConfig, build_model,
                                 shape_for_long_context)
+from repro_torch.models.api import shape_spec
 from repro_torch.models.common import as_dtensor, use_mesh
 from repro_torch.optim import adamw, sgd
 from repro_torch.sharding import step_placements
@@ -159,7 +160,7 @@ def make_prefill_step(cfg: ModelConfig, shape_name: str, device=None,
 
         return model, encode_step
 
-    default_len = SHAPES[shape_name]["seq"]
+    default_len = shape_spec(shape_name)["seq"]
 
     def prefill_step(tokens, cache_len=None, frontend_embeds=None):
         with _no_autograd(mesh), use_mesh(mesh):

@@ -39,6 +39,13 @@ DEC_RATIO = 4
 ENC_CTX_DECODE = 4096  # encoder frames cached during decode shapes
 
 
+def shape_spec(shape) -> Dict[str, Any]:
+    """A shape's ``{"kind", "seq", "batch"}``: the entry of :data:`SHAPES`
+    that ``shape`` names, or ``shape`` itself, a dict of those keys (a step
+    of any batch and length)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
 def shape_for_long_context(cfg: ModelConfig) -> ModelConfig:
     """Sub-quadratic variant used for long_500k: SSM/hybrid run natively;
     full-attention families switch to the sliding-window variant."""
@@ -70,8 +77,10 @@ def _meta(shape, dtype):
 
 
 def input_specs(cfg: ModelConfig, shape_name: str):
-    """Returns (kind, specs): specs maps the step's inputs to meta tensors
-    of their shapes and dtypes (int32 tokens, as the reference's):
+    """Returns (kind, specs) for the shape ``shape_name`` (a name of
+    :data:`SHAPES`, or a dict of its keys: :func:`shape_spec`): specs maps
+    the step's inputs to meta tensors of their shapes and dtypes (int32
+    tokens, as the reference's):
     ``{"batch": {"tokens", "labels"}}`` [B, S] (train), ``{"tokens"}``
     [B, S] (prefill), or ``{"cache", "tokens"}`` with the model's stacked
     cache ``seq`` long and tokens [B, 1] (decode, for
@@ -83,7 +92,7 @@ def input_specs(cfg: ModelConfig, shape_name: str):
     ``{"frames"}`` [B, S, d] (prefill: encode, then the cross K/V), and
     ``{"cache", "tokens", "enc_kv"}`` with the cross K/V of
     ``ENC_CTX_DECODE`` frames (decode)."""
-    spec = SHAPES[shape_name]
+    spec = shape_spec(shape_name)
     kind, S, B = spec["kind"], spec["seq"], spec["batch"]
     if kind == "decode":
         cfg = shape_for_long_context(cfg)
@@ -119,6 +128,6 @@ def input_specs(cfg: ModelConfig, shape_name: str):
 
 def params_spec(cfg: ModelConfig, shape_name: str = "train_4k") -> dict:
     """The model's parameters as meta tensors, by name (no allocation)."""
-    if SHAPES[shape_name]["kind"] == "decode":
+    if shape_spec(shape_name)["kind"] == "decode":
         cfg = shape_for_long_context(cfg)
     return dict(build_model(cfg, device="meta").named_parameters())

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels._shards import is_dtensor
+from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .common import (BATCH_AXES, ModelConfig, apply_rope, constraint_spec,
@@ -80,6 +80,18 @@ def _masked_heads(out, cfg: ModelConfig):
     return out * hm[None, None, :, None].to(out.dtype)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
                  causal=True, kv_x=None, use_flash_kernel=False):
     """x: [B, S, d]. Returns [B, S, d].
@@ -124,13 +136,24 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
     q = maybe_shard(q, BATCH_AXES, None, "model", None)
     k = maybe_shard(k, BATCH_AXES, None, "model", None)
     v = maybe_shard(v, BATCH_AXES, None, "model", None)
-    # the reference divides the x.dtype scores by a float32 sqrt(dh), which
-    # promotes them to float32
-    scores = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(dh)
-    if causal:
-        scores = scores + _causal_mask(S, Sk, 0, w, x.device)[None, None]
-    p = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthk->bshk", p, v)
+
+    def core(q, k, v):
+        # the reference divides the x.dtype scores by a float32 sqrt(dh),
+        # which promotes them to float32
+        scores = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(dh)
+        if causal:
+            scores = scores + _causal_mask(S, Sk, 0, w, q.device)[None, None]
+        p = torch.softmax(scores, dim=-1).to(x.dtype)
+        return torch.einsum("bhst,bthk->bshk", p, v)
+
+    # on a mesh each rank attends over its own batch rows and heads (the
+    # placements pinned above), as DTensor does with no collective: a
+    # DTensor einsum flattens the batch and the heads into one dim, which
+    # torch 2.11's DTensor refuses when both are sharded. The local
+    # gradients leave contiguous: a projection's reshape views them
+    out = (on_shards(lambda *t: core(*map(_ContiguousGrad.apply, t)),
+                     q.placements, q, k, v) if is_dtensor(q)
+           else core(q, k, v))
     out = _masked_heads(out, cfg)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 

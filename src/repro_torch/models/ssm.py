@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._shards import (evenly_sharded, is_dtensor,
-                                         on_shards, refuse)
+                                         on_shards, refuse, stand_in)
 from repro_torch.kernels.rwkv_scan import (on_mesh, rwkv_scan, rwkv_scan_plain,
                                            u_like)
 
@@ -259,13 +259,80 @@ def _selective_scan(x, dt, Bm, Cm, A, h):
     return torch.cat(ys, 1), h.clone()
 
 
+def selective_scan_cost(x, dt, Bm, Cm, A, h, needs=(False,) * 6):
+    """The dry run's count (``launch/dryrun.py``: FLOPs, matmul FLOPs,
+    bytes) of :func:`_selective_scan` on float32 inputs of these shapes:
+    ((flops, matmul, bytes) forward, the same backward), the backward from
+    ``y`` alone (the final state's gradient unused, as in a train step),
+    with ``needs`` the inputs whose gradients autograd takes: x, dt, Bm, Cm
+    and A (a train step's; the first state is zeros), or none.
+
+    Per chunk of ``SCAN_CHUNK`` tokens (T of them; ``J`` chunks) the
+    forward makes ``exp(dt A)`` and ``(dt x) B`` [B, T, d, n], one
+    ``addcmul`` a token, the states stacked where autograd records, and
+    ``h . C`` as one ``bmm`` (the chunk of C, and in the backward of y,
+    copied where there are several chunks); the chunks' y concatenated and
+    the last state copied. The backward per chunk: the ``bmm``'s two, the
+    ``addcmul``'s products a token, each token's gradients written into
+    whole chunk tensors and added up, the products and reductions of
+    ``(dt x) B`` and ``exp(dt A)``, and (with several chunks) each chunk's
+    gradients of x, dt, B and C written into whole [B, S, .] tensors and
+    added up; each state's gradient summed from its two uses."""
+    B, S, d = x.shape
+    n = Bm.shape[-1]
+    f32, C = 4, SCAN_CHUNK
+    lens = [min(C, S - c0) for c0 in range(0, S, C)]
+    J, P, dn = len(lens), B * d * n, d * n
+    Sd, Sn = B * S * d, B * S * n
+    record = any(needs)
+
+    def copied(T):  # a chunk of C (and of y's gradient) as the bmm takes it
+        return B > 1 and 1 < T < S
+
+    fl = mm = nb = 0
+    for T in lens:
+        X, Xd, Xn = B * T * d * n, B * T * d, B * T * n
+        fl += 3 * X + Xd + T * P + 2 * X
+        mm += 2 * X
+        nb += ((Xd + dn + X) + 2 * X + 3 * Xd + (Xd + Xn + X) + 4 * T * P
+               + 2 * X * record + 2 * Xn * copied(T) + (X + Xn + Xd))
+    fwd = (fl, mm, f32 * (nb + 2 * Sd + 2 * P))
+    if not record:
+        return fwd, (0, 0, 0)
+    if tuple(needs) != (True,) * 5 + (False,):
+        raise NotImplementedError(f"the scan's backward for gradients of "
+                                  f"{needs} (x, dt, Bm, Cm, A, h) is not "
+                                  "counted")
+    sliced = J > 1
+    fl = mm = nb = 0
+    for T in lens:
+        X, Xd, Xn = B * T * d * n, B * T * d, B * T * n
+        fl += 4 * X + 2 * T * P + 2 * (T - 1) * X + 4 * X + 2 * Xd + X + 4 * X
+        mm += 4 * X
+        nb += (2 * Xd * copied(T) + 2 * (X + Xd + Xn)
+               + T * 5 * P + 2 * T * (P + X) + 6 * (T - 1) * X
+               + (2 * X + Xd) + (2 * X + Xn) + (X + Xd) + (X + Xn)
+               + 6 * Xd + 3 * X
+               + (2 * X + Xd) + (2 * X + dn) + (X + Xd) + (X + dn)
+               + sliced * (2 * (Xn + Sn) + 3 * (Xd + Sd)))
+    fl += ((S - 1) * 3 * P + 2 * (J - 1) * Sn + (J - 1) * Sd
+           + (2 * J - 1) * Sd + (J - 1) * dn)
+    nb += ((S - 1) * (5 * P + 3 * P) + 6 * (J - 1) * Sn + 3 * (J - 1) * Sd
+           + 3 * (2 * J - 1) * Sd + 3 * (J - 1) * dn)
+    return fwd, (fl, mm, f32 * nb)
+
+
 def _meta_selective_scan(x, dt, Bm, Cm, A, h):
     """The scan's stand-in on meta tensors: (y [B,S,d], h [B,d,n]) float32,
     each a function of every input, so that a meta run's autograd graph
     reaches them all; a few ops a call, where the scan loops over the
-    tokens."""
-    y = x * dt * ((Bm * Cm).sum(-1, keepdim=True) + A.sum(-1))
-    return y, h * A + torch.einsum("bsd,bsn->bdn", x * dt, Bm + Cm)
+    tokens, counted by the dry run as the scan
+    (:func:`selective_scan_cost`)."""
+    def ops(x, dt, Bm, Cm, A, h):
+        y = x * dt * ((Bm * Cm).sum(-1, keepdim=True) + A.sum(-1))
+        return y, h * A + torch.einsum("bsd,bsn->bdn", x * dt, Bm + Cm)
+
+    return stand_in(ops, selective_scan_cost, x, dt, Bm, Cm, A, h)
 
 
 def _moved(name, t, want):

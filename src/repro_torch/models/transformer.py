@@ -39,11 +39,60 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels._shards import is_dtensor
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (BATCH_AXES, ModelConfig, cross_entropy_loss, dense_init,
-                     embed_init, maybe_shard, rmsnorm, swiglu, vocab_mask)
+from .common import (BATCH_AXES, ModelConfig, as_dtensor, cross_entropy_loss,
+                     dense_init, embed_init, maybe_shard, rmsnorm, swiglu,
+                     vocab_mask)
+
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` on DTensors, the forward DTensor's own index; the
+    backward scatters each rank's rows of the output's gradient into a
+    table of its own (``index_put``, accumulating) and states the result's
+    placements: a partial sum over a mesh dim the tokens are split on, the
+    columns split where the gradient's are. DTensor's own ``index_put``
+    for that gradient fails on torch 2.11 where the gradient comes in as a
+    partial sum (it names a shard dim -1)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (table.shape, table.stride(), table.dtype)
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        tokens, = ctx.saved_tensors
+        shape, stride, dtype = ctx.table
+        mesh = g.device_mesh
+        gp, tp, wp = [], [], []
+        for pg, pt in zip(g.placements, tokens.placements):
+            if pg == Shard(2):        # the columns: a table's column shard
+                gp.append(pg), tp.append(Replicate()), wp.append(Shard(1))
+            elif isinstance(pt, Shard):   # the tokens' rows: a partial sum
+                gp.append(pt), tp.append(pt), wp.append(Partial())
+            else:
+                gp.append(Replicate()), tp.append(Replicate())
+                wp.append(Replicate())
+        gl = g.contiguous().redistribute(mesh, gp).to_local()
+        tl = tokens.redistribute(mesh, tp).to_local()
+        wl = torch.zeros((shape[0], gl.shape[-1]), dtype=dtype,
+                         device=gl.device)
+        wl.index_put_((tl,), gl.to(dtype), accumulate=True)
+        return DTensor.from_local(wl, mesh, wp, run_check=False,
+                                  shape=shape, stride=stride), None
+
+
+def lookup(table, tokens):
+    """``table[tokens]``: the rows of an embedding table; on a mesh (a
+    DTensor table) through :class:`_Lookup`."""
+    if not is_dtensor(table):
+        return table[tokens]
+    return _Lookup.apply(table, as_dtensor(tokens, table.device_mesh))
+
 
 # ---------------------------------------------------------------------------
 # per-layer parameters
@@ -457,7 +506,7 @@ class DecoderLM(nn.Module):
 
     # -- shared trunk ----------------------------------------------------
     def _embed(self, tokens, frontend_embeds=None):
-        x = self.embed[tokens].to(self.cfg.dtype)
+        x = lookup(self.embed, tokens).to(self.cfg.dtype)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(self.cfg.dtype), x], dim=1)
         return x
@@ -669,7 +718,7 @@ class EncDecLM(nn.Module):
         ``batch["tokens"]`` [B, Sd] given ``batch["frontend_embeds"]``
         [B, Se, d]: what :meth:`loss` scores."""
         enc = self.encode(batch["frontend_embeds"])
-        x = self.embed[batch["tokens"]].to(self.cfg.dtype)
+        x = lookup(self.embed, batch["tokens"]).to(self.cfg.dtype)
         for blk in self.dec_blocks:
             x = (remat(self._dec_block, blk, x, enc) if self._checkpointed()
                  else self._dec_block(blk, x, enc))
@@ -704,7 +753,7 @@ class EncDecLM(nn.Module):
         """tokens: [B, 1] -> (logits [B,1,V], cache), attending to the
         encoder through ``enc_kv`` (:meth:`precompute_enc_kv`). The cache's
         k/v are updated in place; the returned cache has ``length + 1``."""
-        x = self.embed[tokens].to(self.cfg.dtype)
+        x = lookup(self.embed, tokens).to(self.cfg.dtype)
         x, cache = _decode_layers(self.dec_blocks, x, cache, self.cfg,
                                   enc_kv=enc_kv, use_kernels=self.use_kernels)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)

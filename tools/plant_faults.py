@@ -16,7 +16,10 @@ per run, what the checks read. The phases ``spmd_cpu`` and
 (the reference's sharded step on four forced host devices, the port's on
 four gloo ranks) in the copy, and every one of that file's readings, over
 its limit (``--faults sound_spmd`` and ``sound_spmd_families`` plant
-nothing, for the sound readings).
+nothing, for the sound readings); ``dryrun_cost_cpu`` the readings of
+``tests/test_torch_dryrun_cost.py`` (the dry run's per-device FLOPs
+against ``step_flops`` on 1×1, the reference's XLA count on 2×2 and a
+layer counted by hand; ``sound_dryrun_cost`` plants nothing).
 What ``chip_smoke.py`` reads: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
@@ -202,10 +205,31 @@ FAULTS = {
         "    h = F.silu(x @ w1) * (x @ w3)\n",
         "    w1, w3 = (w3, w1) if x.is_cuda else (w1, w3)\n"
         "    h = F.silu(x @ w1) * (x @ w3)\n", ("launch",)),
+    # the dry run's per-device cost (launch/dryrun.py), held on the CPU by
+    # tests/test_torch_dryrun_cost.py's readings (phase "dryrun_cost_cpu"):
+    # each DTensor op counted once at its global shapes (run on plain meta
+    # tensors of them) in place of the rank-local ops it becomes
+    "cost_counts_global_shapes": (
+        "src/repro_torch/launch/dryrun.py",
+        ("            if any(t is DTensor for t in types):\n"
+         "                return NotImplemented\n",
+         "            if not COSTS[\"quiet\"]:\n"),
+        ("            if any(t is DTensor for t in types):\n"
+         "                from torch.utils._pytree import tree_map\n"
+         "                whole = tree_map(lambda x: torch.empty(\n"
+         "                    x.shape, dtype=x.dtype, device=\"meta\")\n"
+         "                    if isinstance(x, DTensor) else x, (args, kwargs))\n"
+         "                got = func(*whole[0], **whole[1])\n"
+         "                self._count(func, *whole, got, _tensors(got), None)\n"
+         "                self.on_mesh = True\n"
+         "                return NotImplemented\n",
+         "            if not (COSTS[\"quiet\"] or getattr(self, \"on_mesh\", 0)):\n"),
+        ("dryrun_cost_cpu",)),
 }
 # the sound tree through a phase (nothing planted): each must pass
 SOUND = {"sound_spmd": (None, None, None, ("spmd_cpu",)),
-         "sound_spmd_families": (None, None, None, ("spmd_families_cpu",))}
+         "sound_spmd_families": (None, None, None, ("spmd_families_cpu",)),
+         "sound_dryrun_cost": (None, None, None, ("dryrun_cost_cpu",))}
 # a CPU phase -> the test file whose two programs it runs
 CPU_PHASES = {"spmd_cpu": "test_torch_spmd",
               "spmd_families_cpu": "test_torch_spmd_families"}
@@ -278,9 +302,33 @@ def run_spmd_cpu(name: str, phase: str) -> dict:
             "worst": max(read.values()), "error": None}
 
 
+def run_dryrun_cost_cpu(name: str) -> dict:
+    """tests/test_torch_dryrun_cost.py's readings (matmul FLOPs on 1×1
+    over ``step_flops``; 2×2 FLOPs over the reference's XLA count; the
+    hand-counted layer over the dry run) in the planted copy."""
+    tree = plant(name)
+    code = ("import json, sys; sys.path[:0] = ['src', 'tests']; "
+            "import test_torch_dryrun_cost as t; "
+            "print(json.dumps(t.readings()))")
+    env = dict(__import__("os").environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(tree / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        return {"fault": name, "phase": "dryrun_cost_cpu", "rc": 1,
+                "read": {}, "error": proc.stderr[-2000:]}
+    read = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = sorted(k for k, (_, ok) in read.items() if not ok)
+    return {"fault": name, "phase": "dryrun_cost_cpu", "rc": 1 if bad else 0,
+            "read": {k: v for k, (v, _) in read.items()}, "over_limit": bad,
+            "error": None}
+
+
 def run(name: str, phase: str) -> dict:
     if phase in CPU_PHASES:
         return run_spmd_cpu(name, phase)
+    if phase == "dryrun_cost_cpu":
+        return run_dryrun_cost_cpu(name)
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase],
                           cwd=plant(name), capture_output=True, text=True,
                           timeout=900)
