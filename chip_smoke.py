@@ -256,20 +256,29 @@ printing JSON lines:
    train cases the card's own reading of that step (``spmd_memory``: the
    bytes of its parameters, AdamW state and batch, and the most bytes
    allocated over one step with the stats reset once they are resident):
-   the ``cost`` line, its FLOP count over 989.4 TFLOP/s no more than the
+   the ``cost`` line, its matmul FLOPs equal to the unsharded step's
+   ``step_flops`` (``launch.dryrun.step_record``) and its FLOP count over
+   989.4 TFLOP/s no more than the
    median step, ``argument_size`` and ``peak_size`` within ``COST_TOL``,
    the byte count over 3.35 TB/s beside the step (an H100 80GB HBM3's
    dense bf16 peak and memory rate at a 700 W power limit,
    ``core.profiles``).
-19. ``sites`` — FedZero scheduling sites of H100 cards profiled from the
+19. ``sites`` — first the dry run under this torch against the
+   reference (``sites_reference`` line): the steps of ``XLA_FLOPS`` (the
+   reduced configs on 2×2, llama3.2-3b's full width cut to 2 layers on
+   2×16) as DTensor programs on the fake group, each one's FLOPs a
+   device within ``FLOP_RATIO`` of XLA's count of repro's step. Then
+   FedZero scheduling sites of H100 cards profiled from the
    dry run (``SITES``): ``train_4k`` × ``single_pod`` records of
    smollm-360m, llama3.2-3b and kimi-k2-1t-a32b (full configs on meta
-   tensors over the fake 16×16 mesh, ``dryrun_one``), three sites of 64
-   cards each (``core.registry_from_roofline``), and
+   tensors over the fake 16×16 mesh, ``dryrun_one``), their FLOPs a
+   device within ``SITES_TOL`` of torch 2.13's (``SITES_2_13``), three
+   sites of 64 cards each (``core.registry_from_roofline``), and
    tests/test_pod_sites.py's FedZero set-up (``global``, n 5, d_max 60,
    20 hours) on ``cuda``, K1/K2's counts set to 0 just before and read
    just after, then on NumPy: rounds and total energy identical, kimi's δ
-   and smollm's capacity each more than 5× the other's, a kernel
+   and smollm's capacity each more than 5× the other's and within
+   ``SITES_TOL`` of the ratios 2.13's records give, a kernel
    launched (the dense store: K2); the phase's seconds.
 
 Every logit, state and oracle output these phases compare must be
@@ -555,6 +564,29 @@ COST_TOL = {"argument_size": 0.01, "peak_size": 0.15}
 SITES = dict(archs=("smollm-360m", "llama3.2-3b", "kimi-k2-1t-a32b"),
              shape="train_4k", n_sites_per_arch=3, chips_per_site=64,
              hours=20, n=5, d_max=60, k=0.01, ratio=5)
+# the reference's per-device FLOPs of the steps of launch.dryrun.case_parts
+# (tests/test_torch_dryrun_cost.py's CASES, which holds these to its live
+# count): XLA's cost analysis of repro's step, every layer unrolled, on
+# forced host devices. The dry run under this torch holds each within
+# FLOP_RATIO of its count (its 2×16 case, model 16 as on the production
+# mesh, shows a backward product done whole on every rank; the 2×2
+# cases' attention leaves a projection's share small)
+XLA_FLOPS = {"smollm-360m/train_4k": 11531501699072,
+             "smollm-360m/decode_32k": 634456512,
+             "mixtral-8x22b/train_4k": 14220820217856,
+             "mixtral-8x22b/decode_32k": 443479840,
+             "llama3.2-3b:2/train_4k@2x16": 150512196386816}
+FLOP_RATIO = 0.25
+# SITES' train_4k × single_pod records under torch 2.13 (the CPU tests';
+# tests/test_torch_spmd_dryrun_train.py holds smollm-360m's to its live
+# record): (flops_per_device, bytes_per_device). This torch's records
+# hold their FLOPs within SITES_TOL of these, and the sites' δ and
+# capacity ratios (kimi over smollm, smollm over kimi) within SITES_TOL of
+# the ones these give
+SITES_2_13 = {"smollm-360m": (20377931570215, 2508592940592),
+              "llama3.2-3b": (133845532033059, 5630359261592),
+              "kimi-k2-1t-a32b": (1423046336959328, 67266965183472)}
+SITES_TOL = 0.10
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
           "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
           "hybrid", "spmd", "sites")
@@ -3226,9 +3258,10 @@ def spmd_memory(torch, mesh, spec):
                 finite=finite)
 
 
-def spmd_cost(torch, pred, measured, step_ms):
+def spmd_cost(torch, pred, step_flops, measured, step_ms):
     """The ``cost`` line: the dry run's prediction ``pred`` of the train
-    step against the card's ``measured`` bytes and its step times."""
+    step against its ``step_flops`` (the unsharded step's count) and the
+    card's ``measured`` bytes and step times."""
     from repro_torch.core.profiles import GPU_HBM_BW, GPU_PEAK_FLOPS
     step_s = statistics.median(step_ms) / 1e3
     ma = pred["memory_analysis"]
@@ -3244,6 +3277,8 @@ def spmd_cost(torch, pred, measured, step_ms):
             "flops_per_device", "matmul_flops_per_device",
             "bytes_per_device", "memory_analysis", "cost_method",
             "memory_method", "spmd_s")},
+        step_flops=step_flops,
+        matmul_over_step_flops=pred["matmul_flops_per_device"] / step_flops,
         measured=measured, step_ms_mesh=step_ms, median_step_s=step_s,
         flop_bound_s=pred["flops_per_device"] / GPU_PEAK_FLOPS,
         flop_bound_over_step=pred["flops_per_device"] / GPU_PEAK_FLOPS
@@ -3253,6 +3288,9 @@ def spmd_cost(torch, pred, measured, step_ms):
         rel_err=got, limits=COST_TOL,
         err_over_limit={k: v / COST_TOL[k] for k, v in got.items()})
     emit("cost", **line)
+    require(pred["matmul_flops_per_device"] == step_flops,
+            f"cost: matmul FLOPs a device on 1×1 "
+            f"{pred['matmul_flops_per_device']} != step_flops {step_flops}")
     require(line["flop_bound_s"] <= step_s,
             f"cost: the FLOP bound {line['flop_bound_s']} s is above the "
             f"measured step {step_s} s: the count is too high")
@@ -3279,6 +3317,8 @@ def run_spmd(torch):
     costed = SPMD["train"][0]
     pred = dryrun.step_cost(get_config(costed["arch"]), "train",
                             costed["batch"], costed["seq"], (1, 1), "tp_fsdp")
+    step_flops = dryrun.step_record(get_config(costed["arch"]), dict(
+        kind="train", batch=costed["batch"], seq=costed["seq"]))["step_flops"]
     mesh = train.fit_mesh(torch.device("cuda:0"))
     try:
         group = dict(backend=dist.get_backend(),
@@ -3330,7 +3370,7 @@ def run_spmd(torch):
             "spmd: K5 never launched on mixtral's mesh route")
     require(infer["rwkv6-1.6b"]["k4_launches"] > 0,
             "spmd: K4 never launched on rwkv6's mesh route")
-    cost = spmd_cost(torch, pred, measured,
+    cost = spmd_cost(torch, pred, step_flops, measured,
                      trained[costed["arch"]]["step_ms_mesh"])
     return {"train": trained, "infer": infer, "cost": cost}
 
@@ -3370,20 +3410,48 @@ def sites_run(torch, rows, bk):
     return reg, summary, rounds, time.perf_counter() - t
 
 
+def dryrun_against_reference():
+    """XLA_FLOPS' steps as DTensor programs on the fake group under this
+    torch (``launch.dryrun.spmd_run``, meta tensors): each one's
+    ``flops_per_device`` over the reference's count, its largest ops."""
+    from repro_torch.launch import dryrun
+    out = {}
+    with dryrun.fake_group():
+        for case, want in XLA_FLOPS.items():
+            cfg, shape, mesh = dryrun.case_config(case)
+            t = time.perf_counter()
+            run = dryrun.spmd_run(cfg, shape, dryrun.fake_mesh(mesh),
+                                  "tp_fsdp")
+            out[case] = dict(
+                ok=run["ok"], flops_per_device=run["cost"]["flops"],
+                xla_flops=want, over_xla=run["cost"]["flops"] / want,
+                flops_by_op=dryrun.largest(run["flops_by_op"], 6),
+                s=time.perf_counter() - t)
+    return out
+
+
 def run_sites(torch, cuda_bk, host):
-    """Phase 19: train_4k × single_pod records of SITES' archs from the dry
-    run in process, the registry of their sites, and FedZero over them on
-    ``cuda`` (K1/K2's counts set to 0 just before, read just after) and
-    on NumPy: identical rounds and energy, and the reference test's site
-    ratios."""
+    """Phase 19: the dry run under this torch against the reference's XLA
+    count (XLA_FLOPS, within FLOP_RATIO); train_4k × single_pod records of
+    SITES' archs from the dry run in process (FLOPs within SITES_TOL of
+    torch 2.13's, SITES_2_13), the registry of their sites, and FedZero
+    over them on ``cuda`` (K1/K2's counts set to 0 just before, read just
+    after) and on NumPy: identical rounds and energy, and the reference
+    test's site ratios, within SITES_TOL of the ones 2.13's records
+    give."""
+    from repro_torch.core.profiles import gpu_site_profile
     from repro_torch.kernels import counter_hash as ch
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
+    reference = dryrun_against_reference()
+    emit("sites_reference", cases=reference, limit=FLOP_RATIO,
+         s=time.perf_counter() - t0)
+    t1 = time.perf_counter()
     with dryrun.fake_group():
         rows = [dryrun.dryrun_one(arch, SITES["shape"], "single_pod",
                                   spmd=True, verbose=False)
                 for arch in SITES["archs"]]
-    records_s = time.perf_counter() - t0
+    records_s = time.perf_counter() - t1
     ch.piece_window.launches = 0
     ch.forecast_z.launches = 0
     reg, s_cuda, r_cuda, cuda_s = sites_run(torch, rows, cuda_bk)
@@ -3396,21 +3464,46 @@ def run_sites(torch, cuda_bk, host):
         per.setdefault(arch, {"delta_wmin_per_step": c.delta,
                               "capacity_steps_per_min": c.m_max_capacity})
     kimi, smol = per["kimi-k2-1t-a32b"], per["smollm-360m"]
+    # the ratios the 2.13 records give: δ and capacity of a site of
+    # SITES' cards, as registry_from_roofline profiles it
+    want = {a: gpu_site_profile(f, b, SITES["chips_per_site"], 1)
+            for a, (f, b) in SITES_2_13.items()}
     line = dict(
         archs=list(SITES["archs"]), sites=len(reg),
-        records={r["arch"]: {k: r[k] for k in (
+        records={r["arch"]: {**{k: r[k] for k in (
             "flops_per_device", "bytes_per_device", "memory_analysis",
-            "spmd_s", "run_s")} for r in rows},
+            "flops_by_op", "spmd_s", "run_s")},
+            "flops_over_2_13": r["flops_per_device"]
+            / SITES_2_13[r["arch"]][0]} for r in rows},
         records_s=records_s, per_arch=per,
         delta_kimi_over_smollm=kimi["delta_wmin_per_step"]
         / smol["delta_wmin_per_step"],
         capacity_smollm_over_kimi=smol["capacity_steps_per_min"]
         / kimi["capacity_steps_per_min"],
+        delta_kimi_over_smollm_2_13=want["kimi-k2-1t-a32b"][1]
+        / want["smollm-360m"][1],
+        capacity_smollm_over_kimi_2_13=want["smollm-360m"][0]
+        / want["kimi-k2-1t-a32b"][0],
         rounds=len(r_cuda), total_energy_wh=s_cuda["total_energy_wh"],
         total_energy_wh_numpy=s_np["total_energy_wh"],
         kernel_launches=launches, util_mode="dense", cuda_s=cuda_s,
         numpy_s=numpy_s, s=time.perf_counter() - t0)
     emit("sites", **line)
+    for case, r in reference.items():
+        require(r["ok"], f"sites: {case}'s step off its out-placements")
+        require(not abs(r["over_xla"] - 1) > FLOP_RATIO,
+                f"sites: {case}'s FLOPs a device {r['flops_per_device']} "
+                f"are {r['over_xla']} of the reference's XLA count "
+                f"{r['xla_flops']}, beyond {FLOP_RATIO}")
+    for arch, r in line["records"].items():
+        require(not abs(r["flops_over_2_13"] - 1) > SITES_TOL,
+                f"sites: {arch}'s FLOPs a device {r['flops_per_device']} "
+                f"are {r['flops_over_2_13']} of torch 2.13's "
+                f"{SITES_2_13[arch][0]}, beyond {SITES_TOL}")
+    for k in ("delta_kimi_over_smollm", "capacity_smollm_over_kimi"):
+        require(not abs(line[k] / line[k + "_2_13"] - 1) > SITES_TOL,
+                f"sites: {k} {line[k]} against 2.13's records' "
+                f"{line[k + '_2_13']}, beyond {SITES_TOL}")
     require(all(r["spmd_ok"] and r["shapes_ok"] for r in rows),
             "sites: a dry-run record failed its shapes or placements")
     require(r_cuda == r_np, "sites: cuda rounds differ from numpy rounds")

@@ -21,12 +21,12 @@ COSTS = {"modes": [], "quiet": 0}
 
 
 @contextlib.contextmanager
-def charged(cost):
+def charged(cost, name="stand-in"):
     """Within: the ops run are a stand-in's, not counted by the counting
     cost modes, each of which is charged ``cost`` = (FLOPs, matmul-family
-    FLOPs, bytes) once instead."""
+    FLOPs, bytes) once instead, under ``name`` in its breakdown."""
     for mode in COSTS["modes"]:
-        mode.charge(*cost)
+        mode.charge(*cost, name=name)
     COSTS["quiet"] += 1
     try:
         yield
@@ -40,13 +40,14 @@ class _StandIn(torch.autograd.Function):
         # an output no loss reads gets no zero gradient made for it
         ctx.set_materialize_grads(False)
         ctx.costs = costs
+        ctx.label = f"stand-in:{fn.__qualname__}"
         ctx.inputs = [(t.shape, t.dtype, t.device) for t in inputs]
-        with charged(costs[0]):
+        with charged(costs[0], ctx.label):
             return fn(*inputs)
 
     @staticmethod
     def backward(ctx, *grads):
-        with charged(ctx.costs[1]):
+        with charged(ctx.costs[1], ctx.label + ".backward"):
             return (None, None) + tuple(
                 torch.empty(s, dtype=d, device=dev) if need else None
                 for (s, d, dev), need in zip(ctx.inputs,

@@ -84,10 +84,15 @@ local ops (rank 0's shards) and counts, per device:
   elementwise work, one FLOP per output element of every other arithmetic
   op and one per input element of a reduction; views, copies and other
   moves (:data:`MOVES`) and collectives none;
+* ``flops_by_op``: ``flops_per_device`` per aten op (the rank-local
+  op's name; a stand-in's charge under ``stand-in:`` and its function),
+  the :data:`BY_OP_TOP` largest and the rest as ``other``, extrapolated
+  over depth as the total is: the entries sum to ``flops_per_device``;
 * ``bytes_per_device``: per op that is not a view, the bytes of the
   distinct input storages it reads and of its outputs: an eager, unfused
   count of what the port's eager route moves, not XLA's ``bytes
   accessed`` after fusion, and never to be read as equal to it;
+  ``bytes_by_op`` the same per op, as ``flops_by_op``;
 * ``memory_analysis``: the reference's keys per device, from the
   lifetimes of the storages the ops make (a weakref per storage):
   ``argument_size`` (the step's inputs, local shards: parameters, optimizer
@@ -135,6 +140,7 @@ from repro_torch.launch.steps import (distribute_model, make_decode_step,
                                       make_prefill_step, make_train_step,
                                       place_cache)
 from repro_torch.models import SHAPES, input_specs, params_spec
+from repro_torch.models.api import shape_spec
 from repro_torch.sharding import (STRATEGIES, MeshShape, cache_specs,
                                   port_param_specs, sharded_bytes,
                                   step_placements)
@@ -166,6 +172,8 @@ COLLECTIVE_OPS = ("_c10d_functional", "c10d_functional", "_dtensor")
 # encoder layers, a line in each, as the reference's probe takes p11, p21
 # and p12
 PROBE_LAYERS = (2, 3)
+# the entries of a record's flops_by_op: the largest, the rest as "other"
+BY_OP_TOP = 12
 
 
 def _collective_kind(func):
@@ -230,7 +238,7 @@ def _distinct_bytes(t) -> int:
     return n * t.element_size()
 
 
-def _collective_bytes_mode():
+def _collective_bytes_mode(op_key=None):
     """A ``TorchDispatchMode`` that counts a step's per-device work: it lets
     DTensor ops through first (``NotImplemented``), as ``CommDebugMode``
     does, and sees each rank-local op they become (the per-device program,
@@ -261,6 +269,12 @@ def _collective_bytes_mode():
       neither) and ``peak_size`` (the most bytes live at once, arguments
       included).
 
+    * ``flops_by_op``, ``bytes_by_op``: ``flops`` and ``moved`` per aten
+      op name (a stand-in's charge under ``stand-in:`` and its name);
+      ``op_key(name, inputs, outputs)``, where given, names the entry
+      instead (a tool's attribution to the code that issued the op; a
+      charge has no tensors). Each sums to its total.
+
     A stand-in's ops (:func:`repro_torch.kernels._shards.stand_in`) are
     not counted: the computation it stands for is charged instead."""
     import weakref
@@ -277,6 +291,8 @@ def _collective_bytes_mode():
             self.bytes = defaultdict(int)
             self.counts = defaultdict(int)
             self.flops = self.matmul_flops = self.moved = 0
+            self.flops_by_op = defaultdict(int)
+            self.bytes_by_op = defaultdict(int)
             self._events = []         # (serial, +/- bytes), in order
             self._live = {}           # storage -> (serial, bytes, weakref)
             self._args = set()        # serials of the arguments' storages
@@ -293,10 +309,13 @@ def _collective_bytes_mode():
             self._end = len(self._events)
             return super().__exit__(*exc)
 
-        def charge(self, flops, matmul_flops, nbytes):
+        def charge(self, flops, matmul_flops, nbytes, name="stand-in"):
+            key = op_key(name, (), ()) if op_key else name
             self.flops += flops
             self.matmul_flops += matmul_flops
             self.moved += nbytes
+            self.flops_by_op[key] += flops
+            self.bytes_by_op[key] += nbytes
 
         def _storage(self, t, argument=False):
             st = t.untyped_storage()
@@ -378,24 +397,31 @@ def _collective_bytes_mode():
             if (not func._schema.is_mutable and results and all(
                     t.untyped_storage()._cdata in read for t in results)):
                 return  # a view: it moves nothing
+            if kind is None and func.namespace in COLLECTIVE_OPS:
+                return  # a collective's bookkeeping (wrap, wait): nothing
+            moved = flops = matmul = 0
             if name not in WRITES_NOTHING:
-                self.moved += sum(min(sum(b for b, _ in v.values()),
-                                      max(n for _, n in v.values()))
-                                  for v in read.values())
-                self.moved += sum(_distinct_bytes(t) for t in results)
+                moved = (sum(min(sum(b for b, _ in v.values()),
+                                 max(n for _, n in v.values()))
+                             for v in read.values())
+                         + sum(_distinct_bytes(t) for t in results))
             packet = func._overloadpacket
             if packet in flop_registry:
-                n = int(flop_registry[packet](*args, **kwargs,
-                                              out_val=out))
-                self.flops += n
-                self.matmul_flops += n
+                flops = matmul = int(flop_registry[packet](
+                    *args, **kwargs, out_val=out))
             elif (kind is not None or func.namespace in COLLECTIVE_OPS
                   or name in MOVES or name in WRITES_NOTHING):
-                return
+                pass
             elif name in REDUCTIONS:
-                self.flops += ins[0].numel() if ins else 0
+                flops = ins[0].numel() if ins else 0
             else:
-                self.flops += sum(t.numel() for t in results)
+                flops = sum(t.numel() for t in results)
+            key = op_key(name, ins, results) if op_key else name
+            self.flops += flops
+            self.matmul_flops += matmul
+            self.moved += moved
+            self.flops_by_op[key] += flops
+            self.bytes_by_op[key] += moved
 
     return StepCost()
 
@@ -469,19 +495,20 @@ def _placements(tree):
     return tuple(tree.placements)
 
 
-def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
+def spmd_run(cfg, shape_name, mesh, strategy, specs=None, op_key=None):
     """One run of ``cfg``'s step for ``shape_name`` (a name of ``SHAPES``
     or a dict of its keys) as a DTensor program on ``mesh`` under
     ``strategy``, on meta tensors: whether its outputs came out on the
     out-placements, its collectives (counts and bytes per op type, per
-    device) and its per-device cost (FLOPs, matmul FLOPs, bytes and the
-    memory analysis: :func:`_collective_bytes_mode`)."""
+    device) and its per-device cost (FLOPs, matmul FLOPs, bytes, both per
+    op, and the memory analysis: :func:`_collective_bytes_mode`, given
+    ``op_key``)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch.train import distribute
     kind, full = input_specs(cfg, shape_name)
     specs = full if specs is None else specs
-    counter = _collective_bytes_mode()
+    counter = _collective_bytes_mode(op_key)
     if kind == "train":
         model, opt, step = make_train_step(cfg, device="meta", mesh=mesh)
         params = {n: p.detach() for n, p in model.named_parameters()}
@@ -553,6 +580,8 @@ def spmd_run(cfg, shape_name, mesh, strategy, specs=None):
             "cost": {"flops": counter.flops,
                      "matmul_flops": counter.matmul_flops,
                      "bytes": counter.moved},
+            "flops_by_op": dict(counter.flops_by_op),
+            "bytes_by_op": dict(counter.bytes_by_op),
             "memory": counter.memory(out)}
 
 
@@ -648,9 +677,22 @@ def _memory(cfg, depths, runs, run_at):
                    f"the line through {probes} by {off} bytes")
 
 
-def spmd_record(cfg, shape_name, mesh_shape, strategy: str) -> dict:
+def largest(by_op, top=BY_OP_TOP):
+    """The ``top`` largest entries of a breakdown (all, where ``top`` is
+    None), the rest summed under ``"other"``: it still sums to its
+    total."""
+    ranked = sorted(by_op.items(), key=lambda kv: (-kv[1], kv[0]))
+    if top is None or len(ranked) <= top:
+        return dict(ranked)
+    return {**dict(ranked[:top]), "other": sum(v for _, v in ranked[top:])}
+
+
+def spmd_record(cfg, shape_name, mesh_shape, strategy: str,
+                top=BY_OP_TOP, op_key=None) -> dict:
     """The SPMD fields of one record (see the module's docstring), for
-    ``shape_name`` (a name of ``SHAPES`` or a dict of its keys)."""
+    ``shape_name`` (a name of ``SHAPES`` or a dict of its keys);
+    ``flops_by_op`` keeps its ``top`` entries (:func:`largest`),
+    ``op_key`` names them (:func:`_collective_bytes_mode`)."""
     t = time.perf_counter()
     depths = _probe_depths(cfg)
     with fake_group():
@@ -659,12 +701,13 @@ def spmd_record(cfg, shape_name, mesh_shape, strategy: str) -> dict:
         def run_at(depth):
             return spmd_run(dataclasses.replace(
                 cfg, n_layers=depth[0], encoder_layers=depth[1]),
-                shape_name, mesh, strategy)
+                shape_name, mesh, strategy, op_key=op_key)
 
         runs = [run_at(d) for d in depths]
         memory, memory_method = _memory(cfg, depths, runs, run_at)
     out = {field: _extrapolated(depths, [r[field] for r in runs], cfg)
-           for field in ("counts", "bytes", "cost")}
+           for field in ("counts", "bytes", "cost", "flops_by_op",
+                         "bytes_by_op")}
     if cfg.encoder_layers > 0:
         method = (f"runs at {', '.join(f'({L}, {E})' for L, E in depths)} "
                   "decoder and encoder layers, linear in each")
@@ -703,7 +746,9 @@ def spmd_record(cfg, shape_name, mesh_shape, strategy: str) -> dict:
             "spmd_method": method,
             "flops_per_device": out["cost"]["flops"],
             "matmul_flops_per_device": out["cost"]["matmul_flops"],
+            "flops_by_op": largest(out["flops_by_op"], top),
             "bytes_per_device": out["cost"]["bytes"],
+            "bytes_by_op": largest(out["bytes_by_op"], top),
             "memory_analysis": {k: memory[k] for k in (
                 "argument_size", "output_size", "temp_size", "peak_size")},
             "cost_method": cost_method,
@@ -721,6 +766,29 @@ def step_cost(cfg, kind: str, batch: int, seq: int, mesh_shape=(1, 1),
         mesh_shape = MeshShape(("data", "model"), tuple(mesh_shape))
     return spmd_record(cfg, {"kind": kind, "seq": seq, "batch": batch},
                        mesh_shape, strategy)
+
+
+def case_parts(case: str):
+    """A step of a named config on a named mesh (the ones the reference's
+    XLA count is held to in ``chip_smoke.py`` and
+    tests/test_torch_dryrun_cost.py): ``arch/shape``, the arch's reduced
+    config on a 2×2 mesh; ``arch/shape@DxM``, its full config on D × M;
+    ``arch:L/shape@DxM``, that cut to L layers. (arch, reduced, L or
+    None, shape, (D, M))."""
+    name, _, mesh = case.partition("@")
+    arch, shape = name.split("/")
+    arch, _, layers = arch.partition(":")
+    sizes = tuple(int(x) for x in mesh.split("x")) if mesh else (2, 2)
+    return arch, not mesh, int(layers) if layers else None, shape, sizes
+
+
+def case_config(case: str):
+    """(config, shape name, ``MeshShape``) of a :func:`case_parts` case."""
+    arch, reduced, layers, shape, sizes = case_parts(case)
+    cfg = get_config(arch, reduced=reduced)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, shape, MeshShape(("data", "model"), sizes)
 
 
 def through(points, S):
@@ -756,7 +824,7 @@ def _same(a, b) -> bool:
 
 def _run_step(cfg, shape_name, kind, specs):
     """(FLOPs, shapes_ok, optimizer name) of one meta run of the step."""
-    B = SHAPES[shape_name]["batch"]
+    B = shape_spec(shape_name)["batch"]
     opt_name = None
     with FlopCounterMode(display=False) as fc:
         if kind == "train":
@@ -780,7 +848,7 @@ def _run_step(cfg, shape_name, kind, specs):
                     frontend_embeds=specs.get("frontend_embeds"))
                 ok = (logits.shape == (B, 1, cfg.vocab_padded)
                       and _same(tuple(cache), tuple(model.init_cache(
-                          B, SHAPES[shape_name]["seq"]))))
+                          B, shape_spec(shape_name)["seq"]))))
         else:
             model, step = make_decode_step(cfg, shape_name, device="meta")
             model.use_kernels = False
@@ -796,9 +864,10 @@ def _run_step(cfg, shape_name, kind, specs):
     return fc.get_total_flops(), ok, opt_name
 
 
-def step_record(cfg, shape_name: str) -> dict:
-    """The meta run of ``cfg``'s step for ``shape_name``: kind, optimizer,
-    ``step_flops``, ``flops_method``, ``shapes_ok`` and ``run_s``."""
+def step_record(cfg, shape_name) -> dict:
+    """The meta run of ``cfg``'s step for ``shape_name`` (a name of
+    ``SHAPES`` or a dict of its keys): kind, optimizer, ``step_flops``,
+    ``flops_method``, ``shapes_ok`` and ``run_s``."""
     t = time.perf_counter()
     kind, specs = input_specs(cfg, shape_name)
     seqs = PROBE_SEQ.get(probe_family(cfg))
@@ -806,7 +875,7 @@ def step_record(cfg, shape_name: str) -> dict:
         runs = [_run_step(cfg, shape_name, kind, cut_specs(specs, kind, s))
                 for s in seqs]
         exact = through([(s, f) for s, (f, _, _) in zip(seqs, runs)],
-                        SHAPES[shape_name]["seq"])
+                        shape_spec(shape_name)["seq"])
         flops, opt = round(exact), runs[0][2]
         at = ", ".join(map(str, seqs[:-1])) + f" and {seqs[-1]}"
         method = (f"{PROBE_FIT[len(seqs)]} in seq from meta runs at {at}"

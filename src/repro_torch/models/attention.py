@@ -24,7 +24,7 @@ from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .common import (BATCH_AXES, ModelConfig, apply_rope, constraint_spec,
-                     dense_init, head_mask, maybe_shard)
+                     dense_init, head_mask, maybe_shard, summed)
 
 NEG_INF = -1e30
 
@@ -128,7 +128,7 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True, window=w)
         out = _masked_heads(out.transpose(1, 2), cfg)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        return summed(torch.einsum("bshk,hkd->bsd", out, params["wo"]))
 
     k = _repeat_kv(k, H // KV)
     v = _repeat_kv(v, H // KV)
@@ -155,7 +155,7 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
                      q.placements, q, k, v) if is_dtensor(q)
            else core(q, k, v))
     out = _masked_heads(out, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return summed(torch.einsum("bshk,hkd->bsd", out, params["wo"]))
 
 
 class KVCache(NamedTuple):

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._shards import is_dtensor
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -178,7 +180,7 @@ def swiglu(x, w1, w3, w2):
     """SwiGLU MLP: silu(x@w1) * (x@w3) @ w2."""
     h = F.silu(x @ w1) * (x @ w3)
     h = maybe_shard(h, *((BATCH_AXES,) + (None,) * (h.ndim - 2) + ("model",)))
-    return h @ w2
+    return summed(h @ w2)
 
 
 def rope_freqs(d_head: int, theta: float):
@@ -323,6 +325,44 @@ def maybe_shard(x, *entries):
         return x
     spec = constraint_spec(x.shape, entries, mesh)
     return as_dtensor(x, mesh).redistribute(mesh, spec_placements(spec, mesh))
+
+
+def _sum_partial(t):
+    """DTensor ``t`` redistributed to ``Replicate`` on the mesh dims where
+    it is a partial sum."""
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
+
+class _Summed(torch.autograd.Function):
+    """The identity of a DTensor, summed where it is a partial sum, and its
+    gradient too (DTensor's own redistribute passes a gradient that comes
+    back as a partial sum on unsummed)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return _sum_partial(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_partial(g)
+
+
+def summed(y):
+    """``y``, the output of a product whose contracted dim is split over
+    ``model`` (an output projection: attention's ``wo``, the FFN's ``w2``),
+    summed where it is a partial sum over a mesh dim (redistributed to
+    ``Replicate`` there), as the reference's partitioner sums it, in the
+    forward pass and the backward alike. DTensor left alone keeps such
+    sums pending, and then does a product of them whole on every rank:
+    with a residual stream that is a partial sum it gathers the next
+    projections' weights (torch 2.13 plans so in an encoder's blocks),
+    with a gradient that is one the backward products of this projection
+    (torch 2.11). Without a mesh, ``y`` itself."""
+    return _Summed.apply(y) if is_dtensor(y) else y
 
 
 def cross_entropy_loss(logits, labels, mask=None):

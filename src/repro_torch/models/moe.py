@@ -44,7 +44,7 @@ from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.moe_gemm import moe_gemm
 
 from .common import (BATCH_AXES, ModelConfig, _ambient_mesh, as_dtensor,
-                     dense_init, maybe_shard)
+                     dense_init, maybe_shard, summed)
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:
@@ -134,23 +134,28 @@ def _experts(buf, params, use_kernels: bool, pin_out: bool = True):
     E = buf.shape[0]
     ep = E % 16 == 0
     buf = maybe_shard(buf, "model", BATCH_AXES, None)
+    w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if _ambient_mesh() is not None:
+        # the weights gathered over the data axes, as the products take
+        # them, in the backward pass too (their gradients reduce-scattered
+        # there): left on their data shards, the backward's products
+        # split the buffer's model dim over data instead
+        w1, w3 = (maybe_shard(w, "model", None, None) if ep
+                  else maybe_shard(w, None, None, "model")
+                  for w in (w1, w3))
+        w2 = maybe_shard(w2, "model" if ep else None,
+                         None if ep else "model", None)
     if use_kernels:
-        w1, w3, w2 = params["w1"], params["w3"], params["w2"]
         if _ambient_mesh() is not None:
             buf = maybe_shard(buf, "model" if ep else None, BATCH_AXES, None)
-            w1, w3 = (maybe_shard(w, "model", None, None) if ep
-                      else maybe_shard(w, None, None, "model")
-                      for w in (w1, w3))
-            w2 = maybe_shard(w2, "model" if ep else None,
-                             None if ep else "model", None)
         h = F.silu(moe_gemm(buf, w1)) * moe_gemm(buf, w3)
     else:
-        h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["w1"]))
-        h = h * torch.einsum("ecd,edf->ecf", buf, params["w3"])
+        h = F.silu(torch.einsum("ecd,edf->ecf", buf, w1))
+        h = h * torch.einsum("ecd,edf->ecf", buf, w3)
     h = maybe_shard(h, "model", BATCH_AXES, None) if ep else \
         maybe_shard(h, None, BATCH_AXES, "model")
     out = moe_gemm(h, w2) if use_kernels else \
-        torch.einsum("ecf,efd->ecd", h, params["w2"])
+        torch.einsum("ecf,efd->ecd", h, w2)
     return maybe_shard(out, "model", BATCH_AXES, None) if pin_out else out
 
 
@@ -161,7 +166,7 @@ def _unsort(sort, v):
 
 def _shared(params, xt):
     hs = F.silu(xt @ params["shared_w1"]) * (xt @ params["shared_w3"])
-    return hs @ params["shared_w2"]
+    return summed(hs @ params["shared_w2"])
 
 
 def _aux(probs, idx, keep, cfg: ModelConfig, T: int):

@@ -35,7 +35,7 @@ from repro_torch.kernels.rwkv_scan import (on_mesh, rwkv_scan, rwkv_scan_plain,
                                            u_like)
 
 from .common import (BATCH_AXES, ModelConfig, as_dtensor, constraint_spec,
-                     dense_init, maybe_shard)
+                     dense_init, maybe_shard, summed)
 
 LORA_DIM = 32
 
@@ -79,9 +79,14 @@ def _rwkv_inputs(params, x, x_prev, cfg: ModelConfig):
     H, dh = _heads(cfg)
     xx = x_prev - x
     mix0 = x + xx * params["mu"][3]  # seed mix (reuses w's mu)
-    delta = torch.einsum("bsl,lkd->bskd",
-                         torch.tanh(mix0 @ params["shift_lora_a"]),
-                         params["shift_lora_b"])  # [B,S,5,d]
+    lora = torch.tanh(mix0 @ params["shift_lora_a"])
+    lora_b = params["shift_lora_b"]
+    if is_dtensor(lora_b) and any(p.is_shard(2) for p in lora_b.placements):
+        # the einsum flattens (5, d), which torch 2.11's DTensor refuses
+        # where d is split (over the data axes: FSDP): one product a mix
+        delta = torch.stack([lora @ lora_b[:, i] for i in range(5)], dim=2)
+    else:
+        delta = torch.einsum("bsl,lkd->bskd", lora, lora_b)  # [B,S,5,d]
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (params["mu"][None, None]
                                                      + delta)
     xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
@@ -115,7 +120,7 @@ def _rwkv_out(params, wkv, g, cfg: ModelConfig):
     yh = y.reshape(B, S, wkv.shape[2], -1)
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-5)
     y = yh.reshape(B, S, d) * params["ln_out"].float()
-    return (y.to(g.dtype) * g) @ params["wo"]
+    return summed((y.to(g.dtype) * g) @ params["wo"])
 
 
 def rwkv_time_mix_scan(params, x, cfg: ModelConfig, use_kernel: bool):
@@ -188,7 +193,7 @@ def rwkv_channel_mix(params, x, x_prev):
     xk = x + (x_prev - x) * params["mu_k"]
     h = torch.square(F.relu(xk @ params["wk"]))
     h = maybe_shard(h, BATCH_AXES, None, "model")
-    return h @ params["wv"]
+    return summed(h @ params["wv"])
 
 
 # =====================================================================

@@ -6,34 +6,41 @@ CPU, on torch's fake process group and meta tensors.
     exactly (the unsharded step under ``FlopCounterMode``): train, prefill
     and decode of a reduced dense, moe, ssm, vlm, encoder-decoder and
     hybrid config. The kernel route's prefill (K3 and K5 plain on meta)
-    and the stand-ins of the scans (counted by formula) included.
-(b) On 2×2 against the reference's ``_compile_once`` (XLA on four forced
-    host devices, ``AxisType.Auto`` axes, in a subprocess): reduced dense
-    and moe configs, train and decode, every layer unrolled.
+    and the stand-ins of the scans (counted by formula) included. The
+    breakdowns by op (``flops_by_op``, ``bytes_by_op``) sum to the totals.
+(b) Against the reference's ``_compile_once`` (XLA on forced host
+    devices, ``AxisType.Auto`` axes, in a subprocess): reduced dense and
+    moe configs on 2×2, train and decode, and llama3.2-3b's train step at
+    full width cut to 2 layers on 2×16, every layer unrolled.
     ``argument_size`` equal; ``output_size`` equal but for XLA's output
     tuple table, 8 bytes a leaf of the step's outputs, which the test
     counts (``OUT_TABLE``); ``flops_per_device`` over XLA's ``flops`` within
     ``FLOP_RATIO`` of 1 (XLA counts a softmax's exp, max and sum, a
     convert, a select as work where the eager count has one op or a move;
     both count a matmul as 2 m n k). Bytes are not compared: the port's
-    are eager and unfused, XLA's after fusion.
+    are eager and unfused, XLA's after fusion. chip_smoke.py's
+    ``XLA_FLOPS``, which hold the card's dry run to the reference, are
+    these counts.
 (c) One reduced dense layer's train step on 2×2 (remat, AdamW, batch 4 ×
     32), counted by hand: the step's local ops are recorded by a mode of
     the test's own and FLOPs and bytes worked out from their shapes and
     storages (2 m n k a matmul; a reduction's input elements; another
-    arithmetic op's output elements; per op that is not a view its
-    distinct input storages' bytes and its outputs'); ``argument_size``
+    arithmetic op's output elements; per op that is not a view, nor a
+    collective's wrap or wait, its distinct input storages' bytes and
+    its outputs'); ``argument_size``
     from the placements of the parameters, AdamW state and batch.
 (d) ``bytes_per_device`` is at least the bytes of the parameters a device
     holds (and of its decode cache).
-(e) The depth line holds at a fourth depth: FLOPs, bytes, argument and
-    output sizes, and temp and peak where ``memory_method`` takes the line.
+(e) The depth line holds at a fourth depth: FLOPs, bytes, both by op,
+    argument and output sizes, and temp and peak where ``memory_method``
+    takes the line.
 (f) Each stand-in's count (``rwkv_scan.plain_cost``,
     ``ssm.selective_scan_cost``) equals the cost mode's count over the real
     loop on CPU tensors (forward, and forward and backward as a train step
     takes it), over one chunk and several; and the dry run charges it.
 """
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -91,6 +98,16 @@ def test_matmul_flops_on_one_device_equal_step_flops(family, shape):
     assert run["cost"]["flops"] > run["cost"]["matmul_flops"]
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_breakdown_by_op_sums_to_the_totals(family, shape):
+    run = _record(family, shape)
+    assert sum(run["flops_by_op"].values()) == run["cost"]["flops"]
+    assert sum(run["bytes_by_op"].values()) == run["cost"]["bytes"]
+    top = max(run["flops_by_op"], key=run["flops_by_op"].get)
+    assert top in ("mm", "bmm", "addmm", "baddbmm")
+
+
 def _nbytes(tree):
     return sum(t.numel() * t.element_size() for t in
                torch.utils._pytree.tree_leaves(tree)
@@ -116,21 +133,24 @@ def test_bytes_cover_the_parameters_and_cache(family, shape):
 # (b) the reference's compiled cost on 2×2
 
 REFERENCE = textwrap.dedent("""
-    import json, os, sys
+    import dataclasses, json, os, sys
     import repro.launch.dryrun as rd  # it sets XLA_FLAGS: set them back
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=32"
     import jax
     from jax.sharding import AxisType
     from repro.configs import get_config
     from repro.launch.steps import make_decode_step, make_train_step
     from repro.models import input_specs
-    assert len(jax.devices()) == 4, jax.devices()
-    mesh = jax.make_mesh((2, 2), ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
+    assert len(jax.devices()) == 32, jax.devices()
     out = {}
     for case in sys.argv[1:]:
-        arch, shape = case.split("/")
-        cfg = get_config(arch, reduced=True)
+        arch, reduced, layers, shape, sizes = json.loads(case)
+        mesh = jax.make_mesh(sizes, ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2,
+                             devices=jax.devices()[:sizes[0] * sizes[1]])
+        cfg = get_config(arch, reduced=reduced)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         r = rd._compile_once(cfg, shape, mesh, "tp_fsdp", unroll=True,
                              want_memory=True)
         kind, specs = input_specs(cfg, shape)
@@ -146,28 +166,38 @@ REFERENCE = textwrap.dedent("""
                      "memory_analysis": r["memory_analysis"]}
     print(json.dumps(out))
 """)
+# dryrun.case_parts: "arch/shape", the reduced config on 2×2;
+# "arch:L/shape@DxM", the full config cut to L layers on D×M. On 2×16
+# (model 16, as on the production mesh) torch 2.11 planned each output
+# projection's backward whole on every rank (1.48× XLA's count; 2×2's
+# reduced configs, their attention's S² most of the work, read within
+# 1.5 % of it)
 CASES = ("smollm-360m/train_4k", "smollm-360m/decode_32k",
-         "mixtral-8x22b/train_4k", "mixtral-8x22b/decode_32k")
+         "mixtral-8x22b/train_4k", "mixtral-8x22b/decode_32k",
+         "llama3.2-3b:2/train_4k@2x16")
+case_parts = dryrun.case_parts
 
 
 def _reference():
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", REFERENCE, *CASES], env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(
+        [sys.executable, "-c", REFERENCE,
+         *(json.dumps(case_parts(c)) for c in CASES)],
+        env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {c: out[json.dumps(case_parts(c))] for c in CASES}
 
 
 def _port_2x2():
     out = {}
     with dryrun.fake_group():
-        mesh = dryrun.fake_mesh(TWO)
         for case in CASES:
-            arch, shape = case.split("/")
-            out[case] = dryrun.spmd_run(get_config(arch, reduced=True), shape,
-                                        mesh, "tp_fsdp")
+            cfg, shape, mesh = dryrun.case_config(case)
+            out[case] = dryrun.spmd_run(cfg, shape, dryrun.fake_mesh(mesh),
+                                        "tp_fsdp")
     return out
 
 
@@ -179,6 +209,24 @@ def reference():
 @pytest.fixture(scope="module")
 def port_2x2():
     return _port_2x2()
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_chip_smoke_xla_counts_equal_the_reference(case, reference):
+    """chip_smoke.py holds the card's dry run to XLA's counts of CASES,
+    written there as constants: each is the live count."""
+    smoke = _chip_smoke()
+    assert tuple(smoke.XLA_FLOPS) == CASES
+    assert smoke.FLOP_RATIO == FLOP_RATIO
+    assert smoke.XLA_FLOPS[case] == reference[case]["flops"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -198,7 +246,8 @@ def test_per_device_cost_against_the_reference_on_2x2(case, reference,
 def _recorder():
     """The step's rank-local ops as they run: (name, input tensors'
     (storage, offset, shape, strides, itemsize, storage bytes), outputs'
-    the same, whether the op mutates, whether it is a collective), on
+    the same, whether the op mutates, whether it is a collective's, and
+    whether it is a collective's bookkeeping (a wrap, a wait)), on
     meta tensors: DTensor's own shape propagation and its bookkeeping on
     host tensors left out."""
     from torch.distributed.tensor import DTensor
@@ -226,9 +275,11 @@ def _recorder():
             if (torch._C._get_dispatch_mode(fake) is None
                     and any(t.is_meta for t in ins + outs)):
                 ins, outs = [meta(t) for t in ins], [meta(t) for t in outs]
+                comm = func.namespace in dryrun.COLLECTIVE_OPS
+                kind = dryrun._collective_kind(func) if comm else None
                 self.ops.append((func._overloadpacket.__name__, ins, outs,
-                                 func._schema.is_mutable,
-                                 func.namespace in dryrun.COLLECTIVE_OPS))
+                                 func._schema.is_mutable, comm,
+                                 comm and kind is None))
             return out
 
     return Record()
@@ -244,10 +295,12 @@ def _by_hand(ops):
         return n * m[4]
 
     flops = nbytes = 0
-    for name, ins, outs, mutable, collective in ops:
+    for name, ins, outs, mutable, collective, bookkeeping in ops:
         stores = {m[0] for m in ins}
         if not mutable and outs and all(m[0] in stores for m in outs):
             continue                       # a view
+        if bookkeeping:
+            continue                       # a collective's wrap or wait
         if name not in dryrun.WRITES_NOTHING:
             per = defaultdict(dict)
             for m in ins:
@@ -283,8 +336,8 @@ def _hand_counted():
     record = _recorder()
     mode = dryrun._collective_bytes_mode
     try:
-        def both():
-            counter = mode()
+        def both(*args):
+            counter = mode(*args)
 
             class Both:
                 def __getattr__(self, k):
@@ -361,7 +414,7 @@ def test_cost_line_holds_at_a_fourth_depth(arch, kind, at):
         runs = {d: dryrun.spmd_run(dataclasses.replace(
             cfg, n_layers=d[0], encoder_layers=d[1]), shape, mesh, "tp_fsdp")
             for d in (*depths, at)}
-    for field in ("cost", "counts", "bytes"):
+    for field in ("cost", "counts", "bytes", "flops_by_op", "bytes_by_op"):
         line = dryrun._extrapolated(depths, [runs[d][field] for d in depths],
                                     deeper)
         assert line == runs[at][field], field

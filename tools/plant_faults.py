@@ -20,6 +20,9 @@ nothing, for the sound readings); ``dryrun_cost_cpu`` the readings of
 ``tests/test_torch_dryrun_cost.py`` (the dry run's per-device FLOPs
 against ``step_flops`` on 1×1, the reference's XLA count on 2×2 and a
 layer counted by hand; ``sound_dryrun_cost`` plants nothing).
+``--phases`` runs only the named phases of each fault (``--faults
+ffn_hidden_replicated_over_model --phases sites``: the card's check of
+the dry run alone).
 What ``chip_smoke.py`` reads: the kernel lines' errors, the rwkv line's
 route, decode and state checks, the moe line's per-layer route and oracle,
 decode, cache and float32 checks, the train and launch phases'
@@ -225,6 +228,19 @@ FAULTS = {
          "                return NotImplemented\n",
          "            if not (COSTS[\"quiet\"] or getattr(self, \"on_mesh\", 0)):\n"),
         ("dryrun_cost_cpu",)),
+    # the dry run's per-device cost against the reference: the FFN's
+    # hidden activation pinned replicated over model before its down
+    # projection, so that each rank does that projection's weight-gradient
+    # product whole; held by the readings of
+    # tests/test_torch_dryrun_cost.py (its 2×16 case) and by chip_smoke.py's
+    # sites phase (the reference's XLA counts, torch 2.13's 16×16 records)
+    "ffn_hidden_replicated_over_model": (
+        "src/repro_torch/models/common.py",
+        "    h = maybe_shard(h, *((BATCH_AXES,) + (None,) * (h.ndim - 2)"
+        " + (\"model\",)))\n",
+        "    h = maybe_shard(h, *((BATCH_AXES,) + (None,) * (h.ndim - 2)"
+        " + (None,)))\n",
+        ("dryrun_cost_cpu", "sites")),
 }
 # the sound tree through a phase (nothing planted): each must pass
 SOUND = {"sound_spmd": (None, None, None, ("spmd_cpu",)),
@@ -248,7 +264,8 @@ KEEP = ("name", "case", "R", "W", "equal_plain", "equal_numpy", "dtype",
         "err_over_limit", "grads", "worst_grad", "worst_param",
         "encode_k3_vs_einsum", "decode_k3_vs_einsum_enc_kv",
         "decode_vs_teacher_forced", "mamba_vs_prefill", "f32_k3_vs_einsum",
-        "f32_decode_vs_prefill", "f32_card_vs_cpu")
+        "f32_decode_vs_prefill", "f32_card_vs_cpu", "cases", "records",
+        "delta_kimi_over_smollm", "delta_kimi_over_smollm_2_13")
 
 
 def copy_tree(dst: Path, path: str, sound, faulty) -> Path:
@@ -339,7 +356,8 @@ def run(name: str, phase: str) -> dict:
         rec = json.loads(line)
         if rec.get("phase") in ("kernel", "kernel_case", "model", "rwkv",
                                 "moe", "train_parity", "launch_parity",
-                                "vlm", "encdec", "hybrid"):
+                                "vlm", "encdec", "hybrid", "sites_reference",
+                                "sites"):
             read.append({k: rec[k] for k in KEEP if k in rec})
     err = [ln for ln in proc.stderr.splitlines() if "Error" in ln][-1:]
     return {"fault": name, "phase": phase, "rc": proc.returncode,
@@ -349,10 +367,15 @@ def run(name: str, phase: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--faults", default=",".join(FAULTS))
+    ap.add_argument("--phases", default=None,
+                    help="run only these of each fault's phases")
     args = ap.parse_args(argv)
+    only = None if args.phases is None else set(args.phases.split(","))
     caught = True
     for name in args.faults.split(","):
         for phase in FAULTS[name][3]:
+            if only is not None and phase not in only:
+                continue
             rec = run(name, phase)
             print(json.dumps(rec), flush=True)
             caught = caught and (rec["rc"] == 0 if name in SOUND
