@@ -1,0 +1,7 @@
+"""Model FLOPs of the traced prefill batches over the traced window at the
+card's bf16 peak, in percent (gpubench/counts/work.py counts them)."""
+from gpubench.metrics._share import mfu
+
+
+def read(ctx):
+    return mfu(ctx)
