@@ -36,6 +36,7 @@ from repro_torch.models.api import shape_spec
 from repro_torch.models.common import as_dtensor, use_mesh
 from repro_torch.optim import adamw, sgd
 from repro_torch.sharding import step_placements
+from repro_torch.spans import span
 
 # parameter-count threshold above which training uses SGD-momentum with
 # bf16 state instead of AdamW fp32 state (memory fit for the giant MoEs)
@@ -75,24 +76,31 @@ def make_train_step(cfg: ModelConfig, optimizer=None, remat: bool = True,
     runs under ``torch.no_grad()``. On a ``mesh`` the inputs are DTensors
     (:func:`repro_torch.sharding.step_placements`): each gradient is
     reduced onto its parameter's placements before the update, and the
-    loss comes out replicated."""
+    loss comes out replicated. While a profiler records, the step and its
+    phases are spans of :mod:`repro_torch.spans`:
+    ``repro_torch.train.step`` over ``.forward`` (the leaves and the
+    loss), ``.backward`` (remat's recompute included), ``.reduce`` and
+    ``.update``."""
     model = build_model(cfg, use_kernels=False, device=device, remat=remat,
                         unroll=unroll)
     opt = optimizer or default_optimizer(cfg)
 
     def train_step(params, opt_state, batch):
-        with use_mesh(mesh):
-            leaves = {n: p.detach().requires_grad_()
-                      for n, p in params.items()}
-            loss = torch.func.functional_call(model, leaves, (batch,))
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True,
-                                        materialize_grads=True)
-            if mesh is not None:
-                grads = [reduce_grad(g, p.placements)
-                         for g, p in zip(grads, leaves.values())]
-                loss = _replicated(loss, mesh)
-            with torch.no_grad():
+        with span("repro_torch.train.step"), use_mesh(mesh):
+            with span("repro_torch.train.forward"):
+                leaves = {n: p.detach().requires_grad_()
+                          for n, p in params.items()}
+                loss = torch.func.functional_call(model, leaves, (batch,))
+            with span("repro_torch.train.backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+            with span("repro_torch.train.reduce"):
+                if mesh is not None:
+                    grads = [reduce_grad(g, p.placements)
+                             for g, p in zip(grads, leaves.values())]
+                    loss = _replicated(loss, mesh)
+            with torch.no_grad(), span("repro_torch.train.update"):
                 new_params, new_state = opt.update(dict(zip(leaves, grads)),
                                                    opt_state, params)
         return new_params, new_state, loss.detach()

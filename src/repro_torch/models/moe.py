@@ -34,12 +34,18 @@ so the scatter into the buffer and the gather back run rank-local
 (``local_map``, on the groups' placements); a flat (decode) dispatch packs
 all tokens, replicated. K5 takes the buffer and the weights on the
 placements of the products (:func:`_experts`).
+
+While a profiler records, the layer is the span ``repro_torch.moe`` and its
+expert products ``repro_torch.moe.experts`` (:mod:`repro_torch.spans`);
+the dispatch counts K5's rows, the assignments kept and those made
+(:func:`_count`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.moe_gemm import moe_gemm
 
@@ -93,9 +99,11 @@ def moe_ffn(params, x, cfg: ModelConfig, use_kernels: bool = False):
     counts, flat where assignments per expert are few (decode shapes)."""
     T = x.shape[0] * x.shape[1]
     grouped_ok = (T * cfg.top_k) / max(cfg.n_experts, 1) >= 64
-    if cfg.moe_dispatch == "grouped" and grouped_ok and _pick_groups(T) > 1:
-        return moe_ffn_grouped(params, x, cfg, use_kernels)
-    return moe_ffn_flat(params, x, cfg, use_kernels)
+    with spans.span("repro_torch.moe"):
+        if (cfg.moe_dispatch == "grouped" and grouped_ok
+                and _pick_groups(T) > 1):
+            return moe_ffn_grouped(params, x, cfg, use_kernels)
+        return moe_ffn_flat(params, x, cfg, use_kernels)
 
 
 def _top_k(probs, K: int):
@@ -157,6 +165,17 @@ def _experts(buf, params, use_kernels: bool, pin_out: bool = True):
     out = moe_gemm(h, w2) if use_kernels else \
         torch.einsum("ecf,efd->ecd", h, w2)
     return maybe_shard(out, "model", BATCH_AXES, None) if pin_out else out
+
+
+def _count(rows: int, keep, assigned: int) -> None:
+    """On the record of :mod:`repro_torch.spans`, while a profiler
+    records: ``moe.rows``, the buffer's rows that the expert products
+    multiply (capacity slots); ``moe.kept``, the assignments that hold
+    one; ``moe.assigned``, the assignments made (tokens x top_k)."""
+    if spans.enabled():
+        spans.count("moe.rows", rows)
+        spans.count("moe.kept", keep.sum())
+        spans.count("moe.assigned", assigned)
 
 
 def _unsort(sort, v):
@@ -237,9 +256,11 @@ def moe_ffn_grouped(params, x, cfg: ModelConfig, use_kernels: bool = False):
     sort, sorted_e, rank, keep = _on_groups(
         lambda i: _slots(i.reshape(i.shape[0], Tg * K), C), idx,
         out=(0, 0, 0, 0))
+    _count(E * G * C, keep, T * K)
     buf, dest = _on_groups(_pack_grouped(E, C, K), xt, sort, sorted_e, rank,
                            keep, out=(1, 0))
-    out = _experts(buf, params, use_kernels)
+    with spans.span("repro_torch.moe.experts"):
+        out = _experts(buf, params, use_kernels)
     y = _on_groups(_combine_grouped(K), _like(out, buf), sort, dest, keep,
                    gate, out=(0,))
     y = maybe_shard(y, BATCH_AXES, None, None).reshape(T, d).to(x.dtype)
@@ -301,9 +322,11 @@ def moe_ffn_flat(params, x, cfg: ModelConfig, use_kernels: bool = False):
 
     sort, sorted_e, rank, keep = _on_groups(
         lambda i: _slots(i.reshape(T * K), C), idx, out=(0, 0, 0, 0))
+    _count(E * C, keep, T * K)
     buf, dest = _on_groups(_pack_flat(E, C, K), xt, sort, sorted_e, rank,
                            keep, out=(0, 0))
-    out = _experts(buf, params, use_kernels, pin_out=False)
+    with spans.span("repro_torch.moe.experts"):
+        out = _experts(buf, params, use_kernels, pin_out=False)
     y = _on_groups(_combine_flat(K), _like(out, buf), sort, dest, keep, gate,
                    out=(0,))
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import spans
 from ..device import resolve_device
 from ..kernels._shards import is_dtensor
 from . import attention as attn
@@ -232,10 +233,11 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
                                    S=S_final)
         y = ssm_mod.rwkv_channel_mix(p.cm, h2, ssm_mod.token_shift(h2))
         return x + y, aux, kv
-    y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_kernels)
-    if return_kv:
-        # re-derive K/V for the cache, as the reference does
-        kv = _project_kv(p.attn, h, cfg)
+    with spans.span("repro_torch.attention"):
+        y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_kernels)
+        if return_kv:
+            # re-derive K/V for the cache, as the reference does
+            kv = _project_kv(p.attn, h, cfg)
     if cfg.hybrid:
         ym, m_state = ssm_mod.mamba_scan(p.mamba, h, cfg)
         y = 0.5 * (y + ym)
@@ -587,6 +589,10 @@ class DecoderLM(nn.Module):
         """Full forward returning (last-position logits, populated cache).
         A vlm's ``frontend_embeds`` [B, N, d] go before the tokens. A
         hybrid's cache is (KV cache, the stacked ``MambaState``)."""
+        with spans.span("repro_torch.prefill"):
+            return self._prefill(tokens, cache_len, frontend_embeds)
+
+    def _prefill(self, tokens, cache_len: int, frontend_embeds):
         cfg = self.cfg
         x = self._embed(tokens, frontend_embeds)
         S = x.shape[1]
