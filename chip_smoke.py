@@ -119,7 +119,14 @@ printing JSON lines:
    equals ``torch.bmm``'s bit for bit. Every case runs and reports before a
    failing one stops the phase. Then ``k5_crossover`` lines: both bf16
    kernels, named, at C 8–64 at mixtral's two expert shapes, each held to
-   the plain version, with ``torch.bmm``'s ms beside them.
+   the plain version, with ``torch.bmm``'s ms beside them. Then
+   ``k5_routed`` lines: the routed product (``moe_gemm_routed``) at
+   mixtral's dropless prefill, 16,384 routed rows in 8 segments of 128-row
+   tiles at both expert shapes, in bf16, held to the plain version, its
+   real rows equal bit for bit to the dense ``wide`` kernel's over the
+   capacity buffer that holds the same rows ([8, 8192, d]), and with NaN
+   in its padding rows; the ms of both, the bound over the routed rows and
+   its share.
 11. ``moe`` — mixtral-8x22b at full width and 8 of its 56 layers in bf16 on
    ``cuda:0`` through the inference demo's ``load_model`` and
    ``generate``: batch 4, prompt 2048, 16 greedy tokens. K3's and K5's
@@ -1496,6 +1503,7 @@ def check_moe_gemm(torch):
     # every case runs and reports before a failure stops the phase
     require(not bad, f"K5 != plain: {bad}")
     check_k5_crossover(torch, k5, gen)
+    check_k5_routed(torch, k5, gen)
     return first
 
 
@@ -1526,6 +1534,67 @@ def check_k5_crossover(torch, k5, gen):
             emit("k5_crossover", **line)
             del x, want, got
         del w
+        torch.cuda.empty_cache()
+
+
+def check_k5_routed(torch, k5, gen):
+    """The routed product at mixtral's dropless prefill (8192 tokens top-2
+    over 8 experts, uniformly routed): against the plain version, and on
+    the same rows against the dense ``wide`` kernel over the capacity
+    buffer [8, 8192, d] (C 256 in each of 32 groups), bit for bit; NaN in
+    the padding rows reaches no real row."""
+    atol, rtol = K5_TOL["torch.bfloat16"]
+    dev, E, T = gen.device, 8, 16384
+    n = torch.bincount(torch.randint(0, E, (T,), generator=gen, device=dev),
+                       minlength=E)
+    seg = (n + k5.ROUTE_ROWS - 1) // k5.ROUTE_ROWS * k5.ROUTE_ROWS
+    end = torch.cumsum(seg, 0)
+    tiles = torch.cat([end.new_zeros(1), end // k5.ROUTE_ROWS]).int()
+    R = T + E * k5.ROUTE_ROWS
+    starts, counts = (end - seg).tolist(), n.tolist()
+    for d, f in ((6144, 16384), (16384, 6144)):
+        w = (torch.randn((E, d, f), generator=gen, device=dev)
+             / d ** 0.5).bfloat16()
+        dense = torch.zeros((E, 8192, d), dtype=torch.bfloat16, device=dev)
+        xr = torch.full((R, d), float("nan"), dtype=torch.bfloat16,
+                        device=dev)
+        for e in range(E):
+            rows = torch.randn((counts[e], d), generator=gen,
+                               device=dev).bfloat16()
+            dense[e, :counts[e]] = rows
+            xr[starts[e]:starts[e] + counts[e]] = rows
+        got = k5.moe_gemm_routed(xr, w, tiles)
+        ref = k5.launch(dense, w, "wide")
+        want = k5.moe_gemm_routed_plain(torch.nan_to_num(xr, nan=0.0), w,
+                                        tiles)
+        torch.cuda.synchronize()
+        ratio, equal, finite = 0.0, True, True
+        for e in range(E):
+            a, b = starts[e], starts[e] + counts[e]
+            g, wt = got[a:b].float(), want[a:b].float()
+            ratio = max(ratio, float(((g - wt).abs()
+                                      / (atol + rtol * wt.abs())).max()))
+            equal = equal and bool(torch.equal(got[a:b],
+                                               ref[e, :counts[e]]))
+            finite = finite and bool(torch.isfinite(g).all())
+        del want, ref
+        flops = 2 * T * d * f
+        nbytes = (E * d * f + T * (d + f)) * 2
+        line = dict(E=E, routed_rows=T, rows=int(end[-1]), d=d, f=f,
+                    segments=counts, err_over_limit=ratio,
+                    equals_dense_wide=equal, real_rows_finite=finite,
+                    ms=cuda_ms(torch, lambda: k5.moe_gemm_routed(xr, w, tiles),
+                               10),
+                    dense_capacity_ms=cuda_ms(
+                        torch, lambda: k5.launch(dense, w, "wide"), 5),
+                    bound_ms=1e3 * max(flops / BF16_FLOPS,
+                                       nbytes / HBM_BYTES_PER_S))
+        line["bound_share"] = line["bound_ms"] / line["ms"]
+        emit("k5_routed", **line)
+        require(ratio <= 1.0 and equal and finite,
+                f"K5 routed at d {d}: {ratio} x the limit, equal to dense "
+                f"wide {equal}, real rows finite {finite}")
+        del w, dense, xr, got
         torch.cuda.empty_cache()
 
 

@@ -55,6 +55,18 @@
 // * float32: 256 threads on the CUDA cores (no tensor-core rate would keep
 //   float32 accuracy), each holding a 4 x 4 part of a 64 x 64 tile; x^T
 //   and w pass through shared memory 16 deep.
+//
+// Routed (moe_gemm_routed_launch): x [R, d] holds each expert's routed rows
+// in one segment, the segments in expert order and 128-row aligned, and a
+// device array tiles[E + 1] gives each segment's start in 128-row tiles
+// (tiles[E], the tiles in all; rows past it are neither read nor stored).
+// The dropless prefill's capacity buffer is three rows in four empty; the
+// routed one multiplies only the routed rows and at most 127 padding rows
+// an expert. The host never reads the array: the wide kernel's persistent
+// walk takes its length from tiles[E] and finds a tile's expert by a binary
+// search of the array, then walks inside the expert as above; a segment is
+// 128-aligned, so a tile never holds two experts' rows. The float32 kernel
+// finds each 64-row block's expert the same way.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,7 +82,8 @@ struct Params {
   const void* x;
   const void* w;
   void* o;
-  int C, d, f;
+  const int* tiles;  // routed: segment starts in 128-row tiles; else null
+  int E, C, d, f;
 };
 
 // the bfloat16 kernels read x and w through their tensor maps
@@ -102,28 +115,65 @@ constexpr int kWBBytes = (kWN / 64) * kWBBox;     // 32 KB
 constexpr int kWStageBytes = kWABytes + kWBBytes;
 constexpr int kWSmemBytes = kWStages * kWStageBytes + 1024 + 128;
 
+constexpr int kRouteRows = 128;       // a routed segment's alignment
+static_assert(kRouteRows == kWM, "a wide tile is one routed tile");
+
+// x's slice of a tile: its expert in the 3-D map (0 for the routed [1, R,
+// d] map) and its first row there; w's expert and first column
 struct WideTile {
-  int e, row0, col0;
+  int xe, row0, e, col0;
 };
 
-// tile t of the walk: expert-major; inside an expert, groups of kGroupF f
-// tiles, C tiles fastest inside a group
-__device__ __forceinline__ WideTile wide_tile(int t, int tiles_c,
-                                              int tiles_f) {
-  const int per_e = tiles_c * tiles_f;
-  const int e = t / per_e;
-  const int r = t - e * per_e;
+// r-th tile inside an expert of tiles_c row tiles: groups of kGroupF f
+// tiles, the row tiles fastest inside a group
+__device__ __forceinline__ void in_expert(int r, int tiles_c, int* ct,
+                                          int* ft) {
   const int group = r / (kGroupF * tiles_c);
   const int in_group = r - group * (kGroupF * tiles_c);
-  const int ct = in_group % tiles_c;
-  const int ft = group * kGroupF + in_group / tiles_c;
-  return {e, ct * kWM, ft * kWN};
+  *ct = in_group % tiles_c;
+  *ft = group * kGroupF + in_group / tiles_c;
 }
 
+// the routed segment that holds `unit` (a tile index times `scale`): the
+// last e < E whose start tiles[e] * scale is at most it. An empty segment
+// starts where the next one does, so it is never the last such e.
+__device__ __forceinline__ int segment_of(const int* __restrict__ tiles,
+                                          int E, int unit, int scale) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (__ldg(tiles + mid) * scale <= unit) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// tile t of the walk, expert-major. Dense: every expert has tiles_c row
+// tiles. Routed: expert e has tiles[e + 1] - tiles[e], from row tiles[e] *
+// kWM of x.
+template <bool kRouted>
+__device__ __forceinline__ WideTile wide_tile(int t, int tiles_c, int tiles_f,
+                                              const Dims& p,
+                                              const int* __restrict__ tiles) {
+  int e, first = 0, r, ct, ft;
+  if (kRouted) {
+    e = segment_of(tiles, p.E, t, tiles_f);
+    first = __ldg(tiles + e);
+    tiles_c = __ldg(tiles + e + 1) - first;
+    r = t - first * tiles_f;
+  } else {
+    e = t / (tiles_c * tiles_f);
+    r = t - e * tiles_c * tiles_f;
+  }
+  in_expert(r, tiles_c, &ct, &ft);
+  return {kRouted ? 0 : e, (first + ct) * kWM, e, ft * kWN};
+}
+
+template <bool kRouted>
 __global__ void __launch_bounds__(kWThreads, 1)
     moe_gemm_wide_kernel(const __grid_constant__ CUtensorMap tmap_x,
                          const __grid_constant__ CUtensorMap tmap_w,
-                         const Dims p) {
+                         const Dims p, const int* __restrict__ tiles) {
   extern __shared__ uint8_t smem_raw[];
   // 128B-swizzled tiles start on 1024-byte boundaries
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -142,9 +192,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
   __syncthreads();
 
+  // routed: p.C is R, the rows of x, and the walk covers tiles[E] row
+  // tiles (at most R's)
   const int tiles_c = (p.C + kWM - 1) / kWM;
   const int tiles_f = (p.f + kWN - 1) / kWN;
-  const int n_tiles = p.E * tiles_c * tiles_f;
+  const int n_tiles =
+      (kRouted ? min(__ldg(tiles + p.E), tiles_c) : p.E * tiles_c) * tiles_f;
   const int nk = (p.d + kWK - 1) / kWK;
 
   if (threadIdx.x < 128) {
@@ -154,12 +207,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
       int s = 0;
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const WideTile tile = wide_tile(t, tiles_c, tiles_f);
+        const WideTile tile =
+            wide_tile<kRouted>(t, tiles_c, tiles_f, p, tiles);
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(&empty[s], phase ^ 1);
           mbar_arrive_expect_tx(&full[s], kWStageBytes);
           const int k0 = kb * kWK;
-          tma_load_3d(stage_a(s), &tmap_x, &full[s], k0, tile.row0, tile.e);
+          tma_load_3d(stage_a(s), &tmap_x, &full[s], k0, tile.row0, tile.xe);
 #pragma unroll
           for (int i = 0; i < kWN / 64; ++i)
             tma_load_3d(stage_b(s) + i * kWBBox, &tmap_w, &full[s],
@@ -181,7 +235,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     int s = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const WideTile tile = wide_tile(t, tiles_c, tiles_f);
+      const WideTile tile = wide_tile<kRouted>(t, tiles_c, tiles_f, p, tiles);
       int prev = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(&full[s], phase);
@@ -208,7 +262,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
       // C fragments: acc[4j..4j+1] at (r0, c), acc[4j+2..4j+3] at (r0 + 8, c)
       __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) +
-                         (long long)tile.e * p.C * p.f;
+                         (long long)tile.xe * p.C * p.f;
       const int r0 = tile.row0 + wg * 64 + warp * 16 + lane / 4;
       const int c0 = tile.col0 + 2 * (lane % 4);
 #pragma unroll
@@ -346,6 +400,7 @@ constexpr int kFN = 64;        // columns per block
 constexpr int kFK = 16;        // depth per step
 constexpr int kFThreads = 256;  // 16 x 16: (ty, tx) owns rows ty*4.., cols tx*4..
 constexpr int kFPad = 4;       // keeps float4 rows aligned
+static_assert(kRouteRows % kFM == 0, "a block's rows lie in one segment");
 
 __global__ void __launch_bounds__(kFThreads)
     moe_gemm_f32_kernel(const Params p) {
@@ -357,10 +412,19 @@ __global__ void __launch_bounds__(kFThreads)
   const int ty = tid >> 4;
   const int col0 = blockIdx.x * kFN;
   const int row0 = blockIdx.y * kFM;
-  const int e = blockIdx.z;
-  const float* x = static_cast<const float*>(p.x) + (long long)e * p.C * p.d;
+  // dense: expert blockIdx.z, its C rows. Routed: x and out are [R, .],
+  // the rows up to tiles[E] * 128 are walked, each block's in one segment
+  int e = blockIdx.z, rows = p.C;
+  long long xe = e;
+  if (p.tiles != nullptr) {
+    rows = min(__ldg(p.tiles + p.E) * kRouteRows, p.C);
+    if (row0 >= rows) return;
+    e = segment_of(p.tiles, p.E, row0, kRouteRows);
+    xe = 0;
+  }
+  const float* x = static_cast<const float*>(p.x) + xe * p.C * p.d;
   const float* w = static_cast<const float*>(p.w) + (long long)e * p.d * p.f;
-  float* o = static_cast<float*>(p.o) + (long long)e * p.C * p.f;
+  float* o = static_cast<float*>(p.o) + xe * p.C * p.f;
 
   float acc[4][4];
 #pragma unroll
@@ -372,7 +436,7 @@ __global__ void __launch_bounds__(kFThreads)
     for (int v = tid; v < kFM * kFK; v += kFThreads) {
       const int r = v / kFK;
       const int c = v - r * kFK;
-      sXT[c][r] = row0 + r < p.C && k0 + c < p.d
+      sXT[c][r] = row0 + r < rows && k0 + c < p.d
                       ? x[(long long)(row0 + r) * p.d + k0 + c]
                       : 0.0f;
     }
@@ -401,7 +465,7 @@ __global__ void __launch_bounds__(kFThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
-    if (r >= p.C) continue;
+    if (r >= rows) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx * 4 + j;
@@ -441,24 +505,45 @@ int map_3d(CUtensorMap* m, const void* base, int inner, int rows, int outer,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
+// dense: x [E, C, d]; routed: x [R, d] (p.C = R) and the device array
+// `tiles`, which the host does not read: the grid covers R's row tiles
+template <bool kRouted>
 int launch_wide(const void* x, const void* w, const Dims& p,
-                cudaStream_t st) {
+                const int* tiles, cudaStream_t st) {
   CUtensorMap tx, tw;
-  int err = map_3d(&tx, x, p.d, p.C, p.E, kWM);
+  int err = map_3d(&tx, x, p.d, p.C, kRouted ? 1 : p.E, kWM);
   if (err == 0) err = map_3d(&tw, w, p.f, p.d, p.E, kWK);
   if (err != 0) return err;
   cudaError_t ce = cudaFuncSetAttribute(
-      moe_gemm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWSmemBytes);
+      moe_gemm_wide_kernel<kRouted>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
   int dev = 0, sms = 0;
   if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
   if (ce == cudaSuccess)
     ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (ce != cudaSuccess) return (int)ce;
-  const int n_tiles =
-      p.E * ((p.C + kWM - 1) / kWM) * ((p.f + kWN - 1) / kWN);
+  const int n_tiles = (kRouted ? 1 : p.E) * ((p.C + kWM - 1) / kWM) *
+                      ((p.f + kWN - 1) / kWN);
   const int grid = n_tiles < sms ? n_tiles : sms;
-  moe_gemm_wide_kernel<<<grid, kWThreads, kWSmemBytes, st>>>(tx, tw, p);
+  moe_gemm_wide_kernel<kRouted>
+      <<<grid, kWThreads, kWSmemBytes, st>>>(tx, tw, p, tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const void* x, const void* w, void* o, const int* tiles,
+               int E, int C, int d, int f, cudaStream_t st) {
+  Params p;
+  p.x = x;
+  p.w = w;
+  p.o = o;
+  p.tiles = tiles;
+  p.E = E;
+  p.C = C;
+  p.d = d;
+  p.f = f;
+  const dim3 grid((f + kFN - 1) / kFN, (C + kFM - 1) / kFM,
+                  tiles == nullptr ? E : 1);
+  moe_gemm_f32_kernel<<<grid, kFThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -494,25 +579,33 @@ int moe_gemm_launch(const void* x, const void* w, void* o, int kind, int E,
   if (E < 1 || C < 1 || d < 8 || f < 8 || d % 8 || f % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind != 0) {
-    const Dims p = {o, E, C, d, f};
-    if (kind == 1) return launch_wide(x, w, p, st);
-    if (C <= 8) return launch_narrow<8>(x, w, p, st);
-    if (C <= 16) return launch_narrow<16>(x, w, p, st);
-    if (C <= 32) return launch_narrow<32>(x, w, p, st);
-    if (C <= 64) return launch_narrow<64>(x, w, p, st);
+  if (kind == 0) return launch_f32(x, w, o, nullptr, E, C, d, f, st);
+  const Dims p = {o, E, C, d, f};
+  if (kind == 1) return launch_wide<false>(x, w, p, nullptr, st);
+  if (C <= 8) return launch_narrow<8>(x, w, p, st);
+  if (C <= 16) return launch_narrow<16>(x, w, p, st);
+  if (C <= 32) return launch_narrow<32>(x, w, p, st);
+  if (C <= 64) return launch_narrow<64>(x, w, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The routed product: x [R, d] holds expert e's rows from row tiles[e] *
+// 128 to tiles[e + 1] * 128, w [E, d, f], out [R, f]; `tiles` is a device
+// array of E + 1 int32, 0 first, non-decreasing, tiles[E] * 128 <= R (rows
+// of out past it are not stored). kind: 0 float32, 1 bfloat16 wide.
+// E >= 1, R >= 1, d and f positive multiples of 8, pointers as above.
+int moe_gemm_routed_launch(const void* x, const void* w, void* o,
+                           const void* tiles, int kind, int E, int R, int d,
+                           int f, void* stream) {
+  if (kind < 0 || kind > 1 || tiles == nullptr)
     return (int)cudaErrorInvalidValue;
-  }
-  Params p;
-  p.x = x;
-  p.w = w;
-  p.o = o;
-  p.C = C;
-  p.d = d;
-  p.f = f;
-  const dim3 grid((f + kFN - 1) / kFN, (C + kFM - 1) / kFM, E);
-  moe_gemm_f32_kernel<<<grid, kFThreads, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  if (E < 1 || R < 1 || d < 8 || f < 8 || d % 8 || f % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(tiles);
+  if (kind == 0) return launch_f32(x, w, o, t, E, R, d, f, st);
+  const Dims p = {o, E, R, d, f};
+  return launch_wide<true>(x, w, p, t, st);
 }
 
 const char* moe_gemm_error_string(int err) {

@@ -18,6 +18,13 @@ float32 runs on the CUDA cores (variant ``f32``). ``moe_gemm.launches``
 counts the kernels' launches, ``moe_gemm.variant_launches`` the same per
 variant. Unlike the reference's launcher it takes any C >= 1 (no block
 multiple); d and f must be multiples of 8 (16-byte rows) on every device.
+
+:func:`moe_gemm_routed` is the same product over a routed buffer x [R, d]:
+each expert's rows in one segment, 128-row aligned (``ROUTE_ROWS``), whose
+starts in 128-row tiles a device array gives (``tiles`` [E + 1], int32);
+the host never reads it. bf16 runs on ``wide``, float32 on ``f32``, each
+walking only the segments' tiles; both count as that variant's launches.
+:func:`moe_gemm_routed_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ VARIANTS = {"f32": 0, "wide": 1, "narrow": 2}  # the kernel's `kind`
 # or 64); up to it, narrow is as fast as wide or faster (chip_smoke.py's
 # k5_crossover lines measure both).
 NARROW_MAX_C = 64
+# A routed segment's alignment: the wide kernel's row tile
+ROUTE_ROWS = 128
 
 
 def pick_variant(C: int) -> str:
@@ -50,6 +59,20 @@ def moe_gemm_plain(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def moe_gemm_routed_plain(x, w, tiles):
+    """Plain PyTorch version of :func:`moe_gemm_routed`: each expert's
+    segment in float32, one product an expert, the result cast back to x's
+    dtype; the rows past the last segment are zeros. Reads ``tiles`` on
+    the host."""
+    out = x.new_zeros((x.shape[0], w.shape[2]))
+    rows = [ROUTE_ROWS * int(t) for t in tiles.tolist()]
+    for e in range(w.shape[0]):
+        a, b = rows[e], rows[e + 1]
+        if b > a:
+            out[a:b] = (x[a:b].float() @ w[e].float()).to(x.dtype)
+    return out
+
+
 _LIB = None
 
 
@@ -62,6 +85,8 @@ def load_library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.moe_gemm_launch.argtypes = [vp, vp, vp] + [i32] * 5 + [vp]
     lib.moe_gemm_launch.restype = ctypes.c_int
+    lib.moe_gemm_routed_launch.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+    lib.moe_gemm_routed_launch.restype = ctypes.c_int
     lib.moe_gemm_error_string.argtypes = [ctypes.c_int]
     lib.moe_gemm_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -118,26 +143,80 @@ def launch(x, w, variant: str):
     if variant == "narrow" and C > NARROW_MAX_C:
         raise ValueError(f"the narrow kernel takes C <= {NARROW_MAX_C}, "
                          f"not {C}")
+    _ready(x, w)
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    return _enqueue("moe_gemm_launch", x, out, variant, x.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), VARIANTS[variant], E, C,
+                    d, f)
+
+
+def _ready(x, w, tiles=None):
+    """What every launch needs: no gradient asked for, CUDA tensors,
+    contiguous, x and w 16-byte aligned (TMA); else it raises."""
     _build.refuse_grad("moe_gemm", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"launch needs CUDA tensors, not {x.device}")
-    for name, t in (("x", x), ("w", w)):
-        if not t.is_contiguous():
+    for name, t in (("x", x), ("w", w), ("tiles", tiles)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if name != "tiles" and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+
+
+def _enqueue(entry: str, x, out, variant: str, *args):
+    """The library's ``entry`` called with ``args`` and x's current
+    stream, on x's device; its error code raised; the launch counted."""
     lib = load_library()
     with torch.cuda.device(x.device):
-        err = lib.moe_gemm_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), VARIANTS[variant],
-            E, C, d, f, torch.cuda.current_stream(x.device).cuda_stream)
+        err = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         msg = lib.moe_gemm_error_string(err).decode()
         raise RuntimeError(f"moe_gemm launch failed: error {err} ({msg})")
     moe_gemm.launches += 1
     moe_gemm.variant_launches[variant] += 1
     return out
+
+
+def _check_routed(x, w, tiles):
+    if _shards.is_dtensor(x) or x.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)}: want a plain [R, d] tensor")
+    _check(x[None], w[:1])
+    E = w.shape[0]
+    if (tiles.dim() != 1 or tiles.shape[0] != E + 1
+            or tiles.dtype != torch.int32 or tiles.device != x.device):
+        raise ValueError(f"tiles {tuple(tiles.shape)} {tiles.dtype}: want "
+                         f"int32 [{E + 1}] on {x.device}")
+
+
+def moe_gemm_routed(x, w, tiles):
+    """x: [R, d], expert e's rows from ``tiles[e] * ROUTE_ROWS`` to
+    ``tiles[e + 1] * ROUTE_ROWS`` (``tiles``: [E + 1] int32 on x's device,
+    0 first, non-decreasing, its last entry at most R / ``ROUTE_ROWS``);
+    w: [E, d, f] -> [R, f] in x's dtype. The rows past the last segment
+    are not stored on the card (zeros on the CPU); a padding row inside a
+    segment holds its own row's product.
+
+    CPU tensors run :func:`moe_gemm_routed_plain`; CUDA tensors launch
+    ``wide`` (bf16) or ``f32``. Checks and refusals as :func:`moe_gemm`;
+    a DTensor raises ``ValueError``."""
+    _check_routed(x, w, tiles)
+    if x.device.type == "cpu":
+        return moe_gemm_routed_plain(x, w, tiles)
+    return launch_routed(x, w, tiles)
+
+
+def launch_routed(x, w, tiles):
+    """Launch the routed product on CUDA tensors (:func:`moe_gemm_routed`);
+    inputs contiguous, x and w 16-byte aligned."""
+    _check_routed(x, w, tiles)
+    _ready(x, w, tiles)
+    (R, d), (E, _, f) = x.shape, w.shape
+    variant = "f32" if x.dtype == torch.float32 else "wide"
+    out = torch.empty((R, f), dtype=x.dtype, device=x.device)
+    return _enqueue("moe_gemm_routed_launch", x, out, variant, x.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), tiles.data_ptr(),
+                    VARIANTS[variant], E, R, d, f)
 
 
 def _on_mesh(x, w):

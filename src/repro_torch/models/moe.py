@@ -23,7 +23,13 @@ twin, the port keeps the reference's result:
 The grouped dispatch packs expert-major, [E, G, C, d] (slot
 ``e*G*C + g*C + rank``) where the reference packs [G, E, C, d], so that the
 expert products read [E, G*C, d] without a copy; each slot holds the same
-row either way.
+row either way. Where K5 runs as a kernel on one device and fewer row
+tiles suffice at worst (:func:`_routed`), it packs only the kept rows
+instead, expert by expert in 128-row aligned segments
+(:func:`_pack_routed`), and K5 walks just those (:func:`.kernels.moe_gemm.moe_gemm_routed`): the same tokens
+kept, each row's product the same, the buffer's empty capacity slots not
+multiplied (the dropless prefill's three in four). The segments' starts
+stay on the device: the dispatch never waits for it.
 
 On a mesh (:func:`.common.use_mesh`) the reference's constraints apply at
 its sites, in the port's layout: the groups over the data axes, the
@@ -47,10 +53,15 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.kernels._shards import is_dtensor, on_shards
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm import (ROUTE_ROWS, moe_gemm,
+                                          moe_gemm_routed)
 
 from .common import (BATCH_AXES, ModelConfig, _ambient_mesh, as_dtensor,
                      dense_init, maybe_shard, summed)
+
+# The device on which K5 launches a kernel (on the CPU it runs its plain
+# version): the grouped dispatch packs routed rows only there (_routed)
+_KERNEL_DEVICE = "cuda"
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:
@@ -167,11 +178,21 @@ def _experts(buf, params, use_kernels: bool, pin_out: bool = True):
     return maybe_shard(out, "model", BATCH_AXES, None) if pin_out else out
 
 
-def _count(rows: int, keep, assigned: int) -> None:
+def _experts_routed(buf, tiles, params):
+    """SwiGLU of every expert over its segment of the routed buffer
+    (:func:`_pack_routed`): buf [R, d] -> [R, d], on K5's routed product."""
+    h = (F.silu(moe_gemm_routed(buf, params["w1"], tiles))
+         * moe_gemm_routed(buf, params["w3"], tiles))
+    return moe_gemm_routed(h, params["w2"], tiles)
+
+
+def _count(rows, keep, assigned: int) -> None:
     """On the record of :mod:`repro_torch.spans`, while a profiler
     records: ``moe.rows``, the buffer's rows that the expert products
-    multiply (capacity slots); ``moe.kept``, the assignments that hold
-    one; ``moe.assigned``, the assignments made (tokens x top_k)."""
+    multiply (capacity slots; under the routed mode each expert's kept
+    rows rounded up to 128, a device tensor); ``moe.kept``, the
+    assignments that hold one; ``moe.assigned``, the assignments made
+    (tokens x top_k)."""
     if spans.enabled():
         spans.count("moe.rows", rows)
         spans.count("moe.kept", keep.sum())
@@ -256,11 +277,18 @@ def moe_ffn_grouped(params, x, cfg: ModelConfig, use_kernels: bool = False):
     sort, sorted_e, rank, keep = _on_groups(
         lambda i: _slots(i.reshape(i.shape[0], Tg * K), C), idx,
         out=(0, 0, 0, 0))
-    _count(E * G * C, keep, T * K)
-    buf, dest = _on_groups(_pack_grouped(E, C, K), xt, sort, sorted_e, rank,
-                           keep, out=(1, 0))
-    with spans.span("repro_torch.moe.experts"):
-        out = _experts(buf, params, use_kernels)
+    if _routed(xt, T * K, E, G * C, use_kernels):
+        buf, dest, tiles, rows = _pack_routed(E, C, K)(xt, sort, sorted_e,
+                                                        rank, keep)
+        _count(rows, keep, T * K)
+        with spans.span("repro_torch.moe.experts"):
+            out = _experts_routed(buf, tiles, params)
+    else:
+        _count(E * G * C, keep, T * K)
+        buf, dest = _on_groups(_pack_grouped(E, C, K), xt, sort, sorted_e,
+                               rank, keep, out=(1, 0))
+        with spans.span("repro_torch.moe.experts"):
+            out = _experts(buf, params, use_kernels)
     y = _on_groups(_combine_grouped(K), _like(out, buf), sort, dest, keep,
                    gate, out=(0,))
     y = maybe_shard(y, BATCH_AXES, None, None).reshape(T, d).to(x.dtype)
@@ -286,19 +314,66 @@ def _pack_grouped(E: int, C: int, K: int):
     return pack
 
 
+def _routed(xt, assigned: int, E: int, slots: int, use_kernels: bool):
+    """Whether the grouped dispatch packs routed rows (:func:`_pack_routed`)
+    rather than capacity slots: K5 on, as a kernel (``xt`` a plain tensor
+    on ``_KERNEL_DEVICE``: on the CPU K5 is its plain version, whose routed
+    form reads the segments on the host), and fewer row tiles at worst,
+    ceil(T*K / 128) + E, than the capacity buffer's, E * ceil(G*C / 128)
+    (``slots`` = G*C)."""
+    def tiles(n):
+        return -(-n // ROUTE_ROWS)
+    return (use_kernels and not is_dtensor(xt)
+            and xt.device.type == _KERNEL_DEVICE
+            and tiles(assigned) + E < E * tiles(slots))
+
+
+def _pack_routed(E: int, C: int, K: int):
+    def pack(xt, sort, sorted_e, rank, keep):
+        """xt [G, Tg, d] -> the routed buffer [R, d], R = T*K + E*128 (a
+        bound fixed by the shapes): expert e's kept rows from row
+        ``128 * tiles[e]``, group by group, each group's in rank order,
+        its segment padded to a multiple of 128 (the padding rows left
+        unwritten); each sorted assignment's row (R, the drop row, where not
+        kept); the segments' starts in 128-row tiles, ``tiles`` [E + 1]
+        int32; and the rows they hold, 128 * tiles[E], a 0-d tensor. The
+        kept set is the capacity path's (``keep``); nothing is read on the
+        host."""
+        G, Tg, d = xt.shape
+        R = G * Tg * K + E * ROUTE_ROWS
+        experts = torch.arange(E + 1, device=xt.device)
+        bounds = torch.searchsorted(sorted_e,
+                                    experts.expand(G, E + 1).contiguous())
+        cnt = (bounds[:, 1:] - bounds[:, :-1]).clamp_(max=C)  # kept [G, E]
+        seg = torch.div(cnt.sum(0) + ROUTE_ROWS - 1, ROUTE_ROWS,
+                        rounding_mode="floor") * ROUTE_ROWS
+        end = torch.cumsum(seg, 0)
+        first = end - seg + torch.cumsum(cnt, 0) - cnt         # [G, E]
+        dest = torch.where(keep, torch.gather(first, 1, sorted_e) + rank, R)
+        grp = torch.arange(G, device=xt.device)[:, None]
+        token = grp * Tg + torch.div(sort, K, rounding_mode="floor")
+        buf = xt.new_empty((R + 1, d))                         # + the drop row
+        buf.index_copy_(0, dest.reshape(-1),
+                        xt.reshape(G * Tg, d)[token.reshape(-1)])
+        tiles = torch.cat([end.new_zeros(1), end // ROUTE_ROWS])
+        return buf[:-1], dest, tiles.to(torch.int32), end[-1]
+    return pack
+
+
 def _combine_grouped(K: int):
     def combine(out, sort, dest, keep, gate):
         """The experts' rows back to their tokens, in assignment order [T,
         K]: gate * keep, cast to the activation dtype before the product,
-        as the reference does. -> [G, Tg, d]."""
-        E, GC, d = out.shape
+        as the reference does. ``out`` is the capacity buffer's [E, G*C,
+        d] or the routed one's [R, d]. -> [G, Tg, d]."""
+        d = out.shape[-1]
         G, Tg = gate.shape[:2]
         T = G * Tg
-        out = out.reshape(E * GC, d)
+        out = out.reshape(-1, d)
         dest_u = _unsort(sort, dest).reshape(T * K)
         keep_u = _unsort(sort, keep).reshape(T * K)
         gathered = torch.where(keep_u[:, None],
-                               out[dest_u.clamp(max=E * GC - 1)], 0)
+                               out[dest_u.clamp(max=out.shape[0] - 1)], 0)
         w = (gate.reshape(T * K) * keep_u.float())[:, None]
         contrib = (gathered * w.to(out.dtype)).view(T, K, d)
         return _sum_k(contrib).view(G, Tg, d)

@@ -8,14 +8,20 @@ reference's tests draw them), go through:
   those tests, in float32 and bfloat16, within the reference's
   tolerances (1e-3 in float32; atol = rtol = 5e-2 in bfloat16);
 * the JAX package's oracle ``ref.moe_gemm_ref``, also at ragged C (37 and
-  1), which the Pallas launcher does not take.
+  1), which the Pallas launcher does not take;
+* the routed product (``moe_gemm_routed``: each expert's rows in one
+  128-aligned segment of x [R, d], the segments' starts in a device array)
+  against the same oracle on each expert's rows, empty experts included.
 
 On the CPU the port's wrapper runs its plain version (the tensors lie on
 the CPU), and the rule that picks the bf16 kernel (``pick_variant``: the
 ``narrow`` kernel up to C 64, the ``wide`` one above) and the checks of
 ``launch`` are tested here. The kernels themselves are held to that plain
 version by the ``cuda``-marked tests, which skip on a host without a CUDA
-device. Both accumulate in float32 and differ only in summation order, so
+device; the routed kernels also at segments of 0, 1, 127, 128, 129 and 2048
+rows and all rows on one expert, with NaN in the padding rows (no real row
+may read one), and bit for bit against the dense ``wide`` and ``f32``
+kernels on the same rows. Both accumulate in float32 and differ only in summation order, so
 those tests are tighter: atol 1e-4 + rtol 1e-2 in bfloat16 (one output
 rounding step, 2^-7 of the value), 1e-4 in float32, as chip_smoke.py's
 ``K5_TOL``.
@@ -135,6 +141,53 @@ def test_counts_start_at_zero_and_cpu_does_not_count():
     assert sum(k5.moe_gemm.variant_launches.values()) == 0
 
 
+def _routed(lengths, x, pad=0.0, tail=128):
+    """The routed buffer of x [E, C, d]'s first lengths[e] rows of each
+    expert: segments padded to 128 rows (the padding rows and ``tail``
+    rows past the last segment hold ``pad``), and the starts in tiles."""
+    seg = [-(-n // k5.ROUTE_ROWS) * k5.ROUTE_ROWS for n in lengths]
+    starts = np.concatenate([[0], np.cumsum(seg)]).astype(np.int64)
+    xr = torch.full((int(starts[-1]) + tail, x.shape[-1]), pad,
+                    dtype=x.dtype, device=x.device)
+    for e, n in enumerate(lengths):
+        xr[starts[e]:starts[e] + n] = x[e, :n]
+    tiles = torch.from_numpy(starts // k5.ROUTE_ROWS).to(torch.int32)
+    return xr, tiles.to(x.device), starts
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("lengths", [(37, 0, 128, 129), (0, 0, 5, 0)])
+def test_routed_plain_matches_oracle(lengths, dtype):
+    E, C = len(lengths), max(lengths)
+    x, w = _inputs(8, E, C, 64, 48, dtype)
+    want = np.asarray(ref.moe_gemm_ref(jnp.asarray(x), jnp.asarray(w)),
+                      np.float32)
+    xr, tiles, starts = _routed(lengths, to_tensor(x), pad=7.0)
+    n0 = k5.moe_gemm.launches
+    got = k5.moe_gemm_routed(xr, to_tensor(w), tiles)
+    assert k5.moe_gemm.launches == n0
+    assert got.shape == (xr.shape[0], 48) and got.dtype == xr.dtype
+    got = got.float().numpy()
+    for e, n in enumerate(lengths):
+        np.testing.assert_allclose(got[starts[e]:starts[e] + n], want[e, :n],
+                                   **_tol(dtype))
+    assert not got[starts[-1]:].any()   # past the last segment: zeros
+
+
+def test_routed_wrapper_checks_its_inputs():
+    x, w = (to_tensor(a) for a in _inputs(9, 2, 5, 16, 24))
+    xr, tiles, _ = _routed((5, 3), x)
+    for bad in ((xr[None], w, tiles),                    # x not [R, d]
+                (xr[:, :8], w, tiles),                   # d differs
+                (xr, w, tiles.long()),                   # tiles not int32
+                (xr, w, tiles[:-1]),                     # not E + 1 entries
+                (xr.bfloat16(), w, tiles)):              # mixed dtypes
+        with pytest.raises(ValueError):
+            k5.moe_gemm_routed(*bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.launch_routed(xr, w, tiles)
+
+
 def _card_inputs(E, C, d, f, dtype, seed=3):
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(seed)
@@ -193,3 +246,73 @@ def test_both_bf16_kernels_match_plain_on_card(C, variant):
     want = k5.moe_gemm_plain(x, w)
     torch.testing.assert_close(got.float(), want.float(),
                                **_card_tol(torch.bfloat16))
+
+
+def _card_routed(lengths, d, f, dtype, pad=0.0, seed=4):
+    x, w = _card_inputs(len(lengths), max(max(lengths), 1), d, f, dtype,
+                        seed=seed)
+    xr, tiles, starts = _routed(lengths, x, pad=pad)
+    return x, w, xr, tiles, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [
+    (0, 1, 127, 128, 129, 2048),   # every edge of a 128-row segment
+    (0, 0, 300, 0),                # every row on one expert
+    (300, 0, 0, 0),
+    (0, 0, 0, 300),
+    (1,),                          # one expert, one row
+])
+def test_routed_kernel_matches_plain_on_card(lengths, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, w, xr, tiles, starts = _card_routed(lengths, 512, 384, dtype)
+    variant = "f32" if dtype == torch.float32 else "wide"
+    v0 = k5.moe_gemm.variant_launches[variant]
+    got = k5.moe_gemm_routed(xr, w, tiles)
+    torch.cuda.synchronize()
+    assert k5.moe_gemm.variant_launches[variant] == v0 + 1
+    want = k5.moe_gemm_routed_plain(xr, w, tiles)
+    n = int(starts[-1])
+    torch.testing.assert_close(got[:n].float(), want[:n].float(),
+                               **_card_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routed_kernel_nan_padding_stays_in_padding_on_card(dtype):
+    """NaN in every padding row and past the last segment: each real row
+    is finite and equals its product with zero padding, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lengths = (0, 1, 127, 129, 200)
+    _, w, xr, tiles, starts = _card_routed(lengths, 1000, 1032, dtype,
+                                           pad=float("nan"))
+    clean = torch.nan_to_num(xr, nan=0.0)
+    got = k5.moe_gemm_routed(xr, w, tiles)
+    want = k5.moe_gemm_routed(clean, w, tiles)
+    torch.cuda.synchronize()
+    for e, n in enumerate(lengths):
+        rows = slice(int(starts[e]), int(starts[e]) + n)
+        assert torch.isfinite(got[rows]).all()
+        assert torch.equal(got[rows], want[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [256, 200])
+def test_routed_kernel_equals_dense_bits_on_card(C, dtype):
+    """On the same rows the routed kernel's output equals the dense
+    kernel's (``wide`` in bf16, ``f32``) bit for bit: each row's product
+    is the same sum in the same order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, w = _card_inputs(4, C, 6144 // 4, 2048, dtype, seed=5)
+    xr, tiles, starts = _routed((C,) * 4, x)
+    dense = k5.launch(x.contiguous(), w,
+                      "f32" if dtype == torch.float32 else "wide")
+    got = k5.moe_gemm_routed(xr, w, tiles)
+    torch.cuda.synchronize()
+    for e in range(4):
+        assert torch.equal(got[starts[e]:starts[e] + C], dense[e])

@@ -14,8 +14,13 @@ layer's counters (``repro_torch.models.moe``).
   ``moe.kept`` = the kept assignments, ``moe.assigned`` = T·K; at
   mixtral's prefill batch (8192 tokens, 32 groups, capacity 4) exactly
   one row in four holds a token; at capacity 1.25 fewer are kept than
-  assigned.
-* On the card: the device interval comes from CUDA events.
+  assigned. With K5 on (``use_kernels``) where the dispatch packs routed
+  rows (on K5's device, for which the CPU stands in here), ``moe.rows`` is each expert's kept rows rounded up to 128, summed
+  (from the dispatch's own route and slots), and mixtral's prefill batch
+  fills at least 94 % of them.
+* On the card: the device interval comes from CUDA events; the routed
+  dispatch at mixtral's batch shape never waits for the device (CUDA's
+  sync debug mode set to raise) and gives the einsum route's output.
 """
 import dataclasses
 import threading
@@ -165,9 +170,9 @@ def test_counted_tensors_are_summed_when_read():
     assert spans.collected()["counters"] == {"n": 15, "m": 5}
 
 
-def _moe(capacity_factor, d=16):
+def _moe(capacity_factor, d=16, experts=4):
     cfg = dataclasses.replace(get_config("mixtral-8x22b", reduced=True),
-                              d_model=d, moe_d_ff=d,
+                              d_model=d, moe_d_ff=d, n_experts=experts,
                               capacity_factor=capacity_factor)
     g = torch.Generator().manual_seed(0)
     params = {n: torch.empty(s, dtype=dt)
@@ -176,13 +181,16 @@ def _moe(capacity_factor, d=16):
     return cfg, params
 
 
-def _kept(x, cfg, params, groups):
-    """The kept assignments, from the dispatch's own route and slots."""
+def _kept(x, cfg, params, groups, per_expert=False):
+    """The kept assignments, from the dispatch's own route and slots (each
+    expert's, where ``per_expert``)."""
     T, K = x.shape[0] * x.shape[1], cfg.top_k
     xt = x.reshape(groups, T // groups, x.shape[-1])
     _, _, idx = M._route(xt, params["router"], K)
     C = M.expert_capacity(T // groups, cfg)
-    keep = M._slots(idx.reshape(groups, T // groups * K), C)[3]
+    _, sorted_e, _, keep = M._slots(idx.reshape(groups, T // groups * K), C)
+    if per_expert:
+        return torch.bincount(sorted_e[keep], minlength=cfg.n_experts), C
     return int(keep.sum()), C
 
 
@@ -219,6 +227,38 @@ def test_mixtrals_prefill_batch_fills_one_row_in_four():
     assert c == {"moe.rows": 65536, "moe.kept": 16384,
                  "moe.assigned": 16384}
     assert 100.0 * c["moe.kept"] / c["moe.rows"] == 25.0
+
+
+@pytest.mark.parametrize("B,S,cf", [(2, 64, 1.25), (4, 512, 1.25),
+                                    (4, 512, 4.0), (8, 100, 2.0)])
+def test_routed_rows_are_each_experts_kept_rows_rounded_up(B, S, cf,
+                                                          monkeypatch):
+    monkeypatch.setattr(M, "_KERNEL_DEVICE", "cpu")  # K5 as its plain version
+    cfg, params = _moe(cf)
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(5))
+    T, K, G = B * S, cfg.top_k, M._pick_groups(B * S)
+    n, C = _kept(x, cfg, params, G, per_expert=True)
+    assert M._routed(x, T * K, cfg.n_experts, G * C, True)
+    with torch.no_grad(), _profiled():
+        M.moe_ffn(params, x, cfg, use_kernels=True)
+    assert spans.collected()["counters"] == {
+        "moe.rows": int((-(-n // 128) * 128).sum()),
+        "moe.kept": int(n.sum()), "moe.assigned": T * K}
+
+
+def test_mixtrals_prefill_batch_on_k5_fills_94_percent(monkeypatch):
+    """The same batch with K5 on, 8 experts: routed rows, at most 127
+    padding rows an expert (16,384 of at most 17,400)."""
+    monkeypatch.setattr(M, "_KERNEL_DEVICE", "cpu")  # K5 as its plain version
+    cfg, params = _moe(4.0, experts=8)
+    x = torch.randn(8, 1024, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    with torch.no_grad(), _profiled():
+        M.moe_ffn(params, x, cfg, use_kernels=True)
+    c = spans.collected()["counters"]
+    assert c["moe.kept"] == c["moe.assigned"] == 16384
+    assert 100.0 * c["moe.kept"] / c["moe.rows"] >= 94.0
 
 
 def test_capacity_125_keeps_fewer_than_it_assigns():
@@ -263,3 +303,31 @@ def test_device_interval_from_cuda_events():
     pool = len(spans.RECORD._pool)
     spans.clear()
     assert len(spans.RECORD._pool) == pool + 4
+
+
+@pytest.mark.cuda
+def test_routed_dispatch_never_waits_for_the_card():
+    """mixtral's prefill batch shape (8192 tokens, 8 experts top-2,
+    capacity 4) at d 256 in bf16 on the card: with K5 on, the dispatch
+    takes routed rows and runs under ``torch.cuda.set_sync_debug_mode``
+    set to raise on any wait for the device; it agrees with the einsum
+    route over capacity slots within 1 % of the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, params = _moe(4.0, d=256, experts=8)
+    dev = torch.device("cuda:0")
+    params = {n: p.to(dev, torch.float32 if n == "router" else
+                      torch.bfloat16) for n, p in params.items()}
+    x = torch.randn(8, 1024, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(6)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        M.moe_ffn(params, x, cfg, use_kernels=True)   # builds K5
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, _ = M.moe_ffn(params, x, cfg, use_kernels=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want, _ = M.moe_ffn(params, x, cfg, use_kernels=False)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) < 0.01
