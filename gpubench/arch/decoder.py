@@ -1,6 +1,6 @@
-"""A configuration file's sizes, as the counts, the reference, the checks
-and the seeded weights read them. Plain Python: imports nothing of the
-program."""
+"""The decoder family's sizes and weights: a decoder-only LM, dense
+(SwiGLU) or with top-k softmax-routed experts, grouped-query attention,
+every layer alike. Plain Python: imports nothing of the program."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,9 +47,13 @@ class Arch:
             dtype=c["torch_dtype"])
 
 
-def layer_shapes(a: Arch) -> dict:
-    """name -> (shape, fan_in or None for a gain of ones, dtype) of one
-    layer's weights, in the order they are drawn."""
+sizes = Arch.from_config
+
+
+def layer_shapes(a: Arch, i: int) -> dict:
+    """name -> (shape, fan_in or None for a gain of ones, dtype) of layer
+    ``i``'s weights, in the order they are drawn: the same for every
+    layer."""
     d, H, KV, dh, f = a.d_model, a.n_heads, a.n_kv_heads, a.d_head, a.d_ff
     out = {"ln1": ((d,), None, a.dtype), "ln2": ((d,), None, a.dtype),
            "attn.wq": ((d, H, dh), d, a.dtype),
@@ -81,3 +85,30 @@ def global_shapes(a: Arch) -> dict:
         out["lm_head"] = ((a.d_model, a.vocab), EMBED_STD, a.dtype)
     return out
 
+
+def port_name(name: str) -> str:
+    """The port's parameter of a benchmark weight: the same name, as the
+    port runs the source's heads unpadded."""
+    return name
+
+
+def check_config(config: dict) -> None:
+    """The port runs the source's heads unpadded: the heads' widths add up
+    to the model's."""
+    a = sizes(config)
+    if a.n_heads * a.d_head != a.d_model:
+        raise ValueError(f"{a.name}: {a.n_heads} heads of {a.d_head} are "
+                         f"not the model's width {a.d_model}")
+
+
+MOE = dict(hidden_size=64, intermediate_size=64, num_attention_heads=4,
+           num_key_value_heads=2, num_hidden_layers=2, num_local_experts=4,
+           vocab_size=128, torch_dtype="float32")
+DENSE = dict(hidden_size=96, intermediate_size=64, num_attention_heads=3,
+             num_key_value_heads=1, num_hidden_layers=2, vocab_size=128,
+             torch_dtype="float32")
+
+
+def tiny(config: dict) -> dict:
+    """The keys that cut ``config`` to a CPU test's size, in float32."""
+    return MOE if config.get("num_local_experts") else DENSE

@@ -18,6 +18,10 @@ One process, seed after seed. For each seed it prints one JSON line:
   reference put in the program's place (a state left unchanged reads 1
   by ``grad_gap`` and ``change_gap`` and needs no run).
 
+The control runs the cell's family's reference (``reference/<family>.py``)
+in fp8. A driver has a control only where :data:`READINGS` names it;
+asked for the control or the faults of another, it exits with 2.
+
 The benchmark's own runs never run this. Needs the card, as ``run.py``.
 """
 from __future__ import annotations
@@ -88,11 +92,10 @@ def prefill_control(cell, seed: int, device) -> dict:
     float32 reference's, on the sample a window would draw from the
     seed's pool."""
     from gpubench.check import prefill as check
-    from gpubench.core.arch import Arch
     from gpubench.core.traffic import prefill_pool
     from gpubench.drivers.prefill import sample
-    from gpubench.reference import decoder as reference
-    a = Arch.from_config(cell.config)
+    reference = cell.family.reference
+    a = cell.family.arch.sizes(cell.config)
     pool = prefill_pool(cell.traffic, a.vocab, seed, device)
     picks = sample([(j, *b.shape) for j, b in enumerate(pool)],
                    cell.traffic["check_per_slot"], seed)
@@ -105,10 +108,9 @@ def prefill_control(cell, seed: int, device) -> dict:
 
 def train_control(cell, seed: int, device, faults: bool) -> dict:
     from gpubench.check import train as check
-    from gpubench.core.arch import Arch
     from gpubench.core.traffic import train_pool
-    from gpubench.reference import decoder as reference
-    a = Arch.from_config(cell.config)
+    reference = cell.family.reference
+    a = cell.family.arch.sizes(cell.config)
     o, mix = cell.config["optimizer"], cell.traffic
     pool = train_pool(mix, a.vocab, seed, device)
     batches = [pool[i % len(pool)] for i in range(mix["checked_steps"])]
@@ -126,6 +128,26 @@ def train_control(cell, seed: int, device, faults: bool) -> dict:
     return out
 
 
+def prefill_readings(cell, seed: int, device, control: bool, faults,
+                     seconds: float) -> dict:
+    row = {}
+    if control:
+        row["control"] = prefill_control(cell, seed, device)
+    if faults is not None:
+        row["faults"] = prefill_faults(cell, seed, device, seconds or 5.0,
+                                       faults or tuple(PREFILL_FAULTS))
+    return row
+
+
+def train_readings(cell, seed: int, device, control: bool, faults,
+                   seconds: float) -> dict:
+    return train_control(cell, seed, device, faults is not None)
+
+
+# the upper readings of each driver's cells, by the driver's name
+READINGS = {"prefill": prefill_readings, "train": train_readings}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -140,6 +162,12 @@ def main(argv=None) -> int:
     from gpubench.core import card, spec
     from gpubench.run import run_cell
     cell = spec.cell(args.workload)
+    upper = args.control or args.faults is not None
+    if upper and cell.driver not in READINGS:
+        print(f"gpubench: control.py has no control for the driver "
+              f"{cell.driver!r} of {cell.name} (it has "
+              f"{', '.join(sorted(READINGS))})", file=sys.stderr)
+        return 2
     card.require(cell.workload["chips"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -154,16 +182,10 @@ def main(argv=None) -> int:
                               "readings": line["readings"],
                               "metrics": line["metrics"]}
         t = time.perf_counter()
-        if cell.driver == "prefill":
-            if args.control:
-                row["control"] = prefill_control(cell, seed, device)
-            if args.faults is not None:
-                row["faults"] = prefill_faults(
-                    cell, seed, device, args.program_seconds or 5.0,
-                    args.faults or tuple(PREFILL_FAULTS))
-        elif args.control or args.faults is not None:
-            row.update(train_control(cell, seed, device,
-                                     args.faults is not None))
+        if upper:
+            row.update(READINGS[cell.driver](
+                cell, seed, device, args.control, args.faults,
+                args.program_seconds))
         row["control_s"] = time.perf_counter() - t
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

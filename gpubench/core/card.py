@@ -8,6 +8,7 @@ is measured alone.
 """
 from __future__ import annotations
 
+import gc
 import os
 import subprocess
 import sys
@@ -71,6 +72,23 @@ def device_line(device, chips: int) -> dict:
             "memory_peak_bytes": max(torch.cuda.max_memory_allocated(i)
                                      for i in range(chips)),
             "power_limit_w": power_limit_w()}
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def free(device) -> None:
+    """Return the freed program state's memory to the card."""
+    import torch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
 
 
 def forbidden_loaded() -> list[str]:

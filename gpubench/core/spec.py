@@ -3,10 +3,13 @@
 ``BENCHMARK.json`` at the repository's root names the cells. A cell's
 ``config`` is ``gpubench/configs/<config>.json``, its ``traffic`` is
 ``gpubench/traffic/<traffic>.json`` and the limits of its correctness
-check are ``gpubench/limits/<workload>.json``. A per-layer metric is read
-by ``gpubench/metrics/<metric>.py``, which defines ``read(ctx)``. Adding a
-cell, a configuration, a traffic mix or a metric adds files; no file here
-names one.
+check are ``gpubench/limits/<workload>.json``. The traffic file's
+``driver`` is ``gpubench/drivers/<driver>.py``. The configuration file's
+``reference`` names its family: ``gpubench/<role>/<family>.py`` for each
+of :data:`ROLES` (see :class:`Family`). A per-layer metric is read by
+``gpubench/metrics/<metric>.py``, which defines ``read(ctx)``. Adding a
+cell, a configuration, a family, a traffic mix or a metric adds files; no
+file here names one.
 """
 from __future__ import annotations
 
@@ -28,6 +31,53 @@ def benchmark() -> dict:
     return load_json(ROOT / "BENCHMARK.json")
 
 
+# what a family supplies, one module each (``gpubench/<role>/<family>.py``)
+# with these functions: its sizes and weights, its counts, its plain
+# reference and the program's configuration of it (see README.md)
+ROLES = {
+    "arch": ("sizes", "layer_shapes", "global_shapes", "port_name",
+             "check_config", "tiny"),
+    "counts": ("prefill_flops", "train_flops", "k5_launches",
+               "k3_launches"),
+    "reference": ("prefill_logits", "train"),
+    "port": ("model_config",),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """A configuration's family, found by name: ``arch`` is
+    ``gpubench/arch/<name>.py``, ``counts``, ``reference`` and ``port``
+    likewise. Only ``port`` imports the program."""
+
+    name: str
+
+    def module(self, role: str):
+        return importlib.import_module(f"gpubench.{role}.{self.name}")
+
+    @property
+    def arch(self):
+        return self.module("arch")
+
+    @property
+    def counts(self):
+        return self.module("counts")
+
+    @property
+    def reference(self):
+        return self.module("reference")
+
+    @property
+    def port(self):
+        return self.module("port")
+
+
+def family(config: dict) -> Family:
+    """The family of a configuration file: the one its ``reference``
+    names."""
+    return Family(config["reference"])
+
+
 @dataclasses.dataclass
 class Cell:
     """One workload of ``BENCHMARK.json`` with the files it names."""
@@ -43,6 +93,19 @@ class Cell:
     @property
     def driver(self) -> str:
         return self.traffic["driver"]
+
+    @property
+    def family(self) -> Family:
+        return family(self.config)
+
+    def files(self) -> list[Path]:
+        """The files the cell's driver, family and per-layer metrics are
+        read from (its configuration, traffic and limits are read
+        already)."""
+        return ([BENCH / "drivers" / f"{self.driver}.py"]
+                + [BENCH / role / f"{self.family.name}.py" for role in ROLES]
+                + [BENCH / "metrics" / f"{m['name']}.py"
+                   for m in self.per_layer])
 
 
 def _reports(metric: dict, workload: str) -> bool:

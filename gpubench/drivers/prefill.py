@@ -27,13 +27,12 @@ import torch
 
 from gpubench.check import prefill as check
 from gpubench.core import card, trace as tr
-from gpubench.core.arch import Arch
 from gpubench.core.traffic import prefill_pool, shape_order
 from gpubench.core.weights import load_port
-from gpubench.counts import work
-from gpubench.reference import decoder as reference
 
-from . import port
+# the traffic's keys that cut it to a CPU test's size
+TINY = dict(shapes=[[8, 16], [4, 32], [2, 64]], pool_batches=6,
+            trace_batches=3, warmup_cycles=1)
 
 
 def p90(values: list) -> float:
@@ -64,11 +63,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
         started: float) -> dict:
     from repro_torch.models import build_model
 
-    a = Arch.from_config(cell.config)
+    fam = cell.family
+    a = fam.arch.sizes(cell.config)
     mix = cell.traffic
-    model = build_model(port.model_config(cell.config), use_kernels=True,
-                        device=device)
-    load_port({n: p for n, p in model.named_parameters()}, a, seed, device)
+    model = build_model(fam.port.model_config(cell.config),
+                        use_kernels=True, device=device)
+    load_port({n: p for n, p in model.named_parameters()}, fam.arch, a,
+              seed, device)
     pool = prefill_pool(mix, a.vocab, seed, device)
     cycle = len(shape_order(mix, seed))
 
@@ -82,7 +83,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
 
     for i in range(cycle * mix["warmup_cycles"]):
         serve(pool[i % cycle])
-    port.sync(device)
+    card.sync(device)
     out = {"setup_s": time.time() - started}
 
     served, lat = [], []
@@ -92,7 +93,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
             with torch.profiler.record_function(tr.WINDOW):
                 for i in range(n):
                     served.append((i, *serve(pool[i % len(pool)])))
-                port.sync(device)
+                card.sync(device)
         out["trace"] = tr.summarize(prof)
         del prof
     else:
@@ -108,9 +109,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
         out["e2e"] = {"prefill_tokens_per_s": tokens / (done - t0),
                       "prefill_p90_ms": 1e3 * p90(lat)}
     shapes = [tuple(pool[j % len(pool)].shape) for j, _, _ in served]
-    out["units"] = [{"flops": work.prefill_flops(a, B, S),
-                     "k5": work.k5_launches(a, B, S),
-                     "k3": work.k3_launches(a, B, S)} for B, S in shapes]
+    counts = fam.counts
+    out["units"] = [{"flops": counts.prefill_flops(a, B, S),
+                     "k5": counts.k5_launches(a, B, S),
+                     "k3": counts.k3_launches(a, B, S)} for B, S in shapes]
     out["attempted"] = sum(B for B, _ in shapes)
     out["failed"] = 0
     out["device"] = card.device_line(device, cell.workload["chips"])
@@ -123,8 +125,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     firsts = [int(by_index[j][1][r]) for j, r in picks]
     prompts = [pool[j % len(pool)][r] for j, r in picks]
     del model, served, by_index
-    port.free(device)
-    refs = reference.prefill_logits(a, seed, prompts, device)
+    card.free(device)
+    refs = fam.reference.prefill_logits(a, seed, prompts, device)
     out["readings"] = check.readings(logits, firsts, refs,
                                      [len(t) for t in prompts])
     return out

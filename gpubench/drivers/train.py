@@ -27,12 +27,10 @@ import torch
 from gpubench.check import train as check
 from gpubench.core import card, trace as tr
 from gpubench.core import weights as W
-from gpubench.core.arch import Arch
 from gpubench.core.traffic import train_pool
-from gpubench.counts import work
-from gpubench.reference import decoder as reference
 
-from . import port
+# the traffic's keys that cut it to a CPU test's size
+TINY = dict(batch=4, seq=16, pool_batches=4, chunk_tokens=32)
 
 
 def _whole(t):
@@ -52,7 +50,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     from repro_torch.optim import adamw
     from repro_torch.sharding import step_placements
 
-    a = Arch.from_config(cell.config)
+    fam = cell.family
+    a = fam.arch.sizes(cell.config)
     o = cell.config["optimizer"]
     mix = cell.traffic
     B, S = mix["batch"], mix["seq"]
@@ -60,12 +59,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     mesh = fit_mesh(device)
     try:
         model, opt, step = make_train_step(
-            port.model_config(cell.config),
+            fam.port.model_config(cell.config),
             optimizer=adamw(o["lr"], b1=o["b1"], b2=o["b2"], eps=o["eps"],
                             weight_decay=o["weight_decay"]),
             remat=o["remat"], device=device, mesh=mesh)
         params = {n: p.detach() for n, p in model.named_parameters()}
-        W.load_port(params, a, seed, device)
+        W.load_port(params, fam.arch, a, seed, device)
         model.to_empty(device="meta")  # the step reads ``params`` only
         state = opt.init(params)
         pool = train_pool(mix, a.vocab, seed, device)
@@ -76,6 +75,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
         state = distribute(state, ol, mesh)
         fed = [distribute(b, bplace, mesh) for b in pool]
         names = list(params)
+        # each of the port's leaves under the benchmark's name
+        bench = {fam.arch.port_name(n): n for n in W.names(fam.arch, a)}
+        leaves = [bench[n] for n in names]
 
         k = mix["checked_steps"]
         losses = []
@@ -84,13 +86,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
             losses.append(loss)
             if i == 0:
                 grad = _norms(state["m"][n] for n in names) / (1 - o["b1"])
-        p0 = dict(W.every(a, seed, device))
+        p0 = dict(W.every(fam.arch, a, seed, device))
         change = []
-        for n in names:
+        for n, leaf in zip(names, leaves):
             change.append(torch.linalg.vector_norm(
-                _whole(params[n]).float() - p0.pop(n).float()))
+                _whole(params[n]).float() - p0.pop(leaf).float()))
         change = torch.stack(change)
-        port.sync(device)
+        card.sync(device)
         out = {"setup_s": time.time() - started}
 
         done = 0
@@ -102,7 +104,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                         params, state, loss = step(
                             params, state, fed[(k + done) % len(fed)])
                         done += 1
-                    port.sync(device)
+                    card.sync(device)
             out["trace"] = tr.summarize(prof)
             del prof
         else:
@@ -112,24 +114,25 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                 params, state, loss = step(params, state,
                                            fed[(k + done) % len(fed)])
                 done += 1
-            port.sync(device)
+            card.sync(device)
             t1 = time.perf_counter()
             out["e2e"] = {"train_tokens_per_s": done * B * S / (t1 - t0)}
-        out["units"] = [{"flops": work.train_flops(a, B, S)}] * done
+        out["units"] = [{"flops": fam.counts.train_flops(a, B, S)}] * done
         out["attempted"] = done
         out["failed"] = 0
         out["device"] = card.device_line(device, cell.workload["chips"])
 
         # the window has closed: read the checked steps, free the program
         prog = {"loss": [float(_whole(x)) for x in losses],
-                "grad_norm": dict(zip(names, grad.tolist())),
-                "change": dict(zip(names, change.tolist()))}
+                "grad_norm": dict(zip(leaves, grad.tolist())),
+                "change": dict(zip(leaves, change.tolist()))}
         del params, state, fed, model, step, opt, losses, loss
     finally:
         if ended and dist.is_initialized():
             dist.destroy_process_group()
-    port.free(device)
-    ref = reference.train(a, seed, [pool[i % len(pool)] for i in range(k)],
-                          o, device, chunk_tokens=mix["chunk_tokens"])
+    card.free(device)
+    ref = fam.reference.train(a, seed,
+                              [pool[i % len(pool)] for i in range(k)], o,
+                              device, chunk_tokens=mix["chunk_tokens"])
     out["readings"] = check.readings(prog, ref)
     return out

@@ -7,7 +7,7 @@ the profiler records, on the traced run's own clock. A unit of the trace
 (a prefill batch, a training step) is one top-level call of the program,
 a span named :data:`PREFILL` or :data:`STEP`; the readers take the last
 ``len(ctx["units"])`` of them. The only module of the harness, besides
-the drivers and ``drivers/port.py``, that reaches the program, and only
+the drivers and ``port/<family>.py``, that reaches the program, and only
 through :func:`record`, which returns None where the program has no such
 module (an older checkout), recorded nothing or fewer calls than units.
 """

@@ -1,5 +1,5 @@
 """Model FLOPs of the traced prefill batches over the traced window at the
-card's bf16 peak, in percent (gpubench/counts/work.py counts them)."""
+card's bf16 peak, in percent (``counts/<family>.py`` counts them)."""
 from gpubench.metrics._share import mfu
 
 

@@ -1,14 +1,8 @@
-"""The program under test: ``repro_torch``'s model configuration of a
-configuration file, and its parameters filled with the benchmark's
-weights. The only module of the harness, with the drivers, that imports
-the program."""
+"""The decoder family's configuration file as the program's model
+configuration."""
 from __future__ import annotations
 
-import gc
-
-import torch
-
-from gpubench.core.arch import Arch
+from gpubench.arch.decoder import Arch, check_config
 from gpubench.core.weights import dtype
 
 
@@ -20,6 +14,7 @@ def model_config(config: dict):
     token of its group, so that the port drops none, as the source's
     routing drops none."""
     from repro_torch.models.common import ModelConfig
+    check_config(config)
     a = Arch.from_config(config)
     port = config["port"]
     dt = dtype(a.dtype)
@@ -39,16 +34,3 @@ def model_config(config: dict):
         dtype=dt, param_dtype=dt, rope_theta=a.rope_theta,
         norm_eps=a.norm_eps, tie_embeddings=a.tie_embeddings,
         source=config["source"])
-
-
-def free(device) -> None:
-    """Return the freed program state's memory to the card."""
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-
-
-def sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

@@ -32,8 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpubench.arch import decoder as arch
+from gpubench.arch.decoder import Arch
 from gpubench.core import weights as W
-from gpubench.core.arch import Arch
 
 F8_MAX = 448.0
 
@@ -139,10 +140,10 @@ def prefill_logits(a: Arch, seed: int, prompts, device,
     """Each prompt's (a 1-d tensor of token ids) last-position logits
     [vocab] in float32. The layers are made from ``seed`` one at a time
     and run over every prompt before the next."""
-    g = dict(W.outer(a, seed, device))
+    g = dict(W.outer(arch, a, seed, device))
     xs = [g["embed"][t.to(device)].float()[None] for t in prompts]
     for i in range(a.n_layers):
-        p = dict(W.layer(a, seed, i, device))
+        p = dict(W.layer(arch, a, seed, i, device))
         xs = [block(x, p, a, precision) for x in xs]
         del p
     hw = head(a, g).float()
@@ -176,7 +177,7 @@ def train(a: Arch, seed: int, batches, opt: dict, device,
 
     Returns each step's loss, every leaf's first gradient norm and every
     leaf's change over all the steps (float64 lists / dicts)."""
-    p0 = {n: t for n, t in W.every(a, seed, device)}
+    p0 = {n: t for n, t in W.every(arch, a, seed, device)}
     params = {n: t.clone() for n, t in p0.items()}
     m = {n: torch.zeros_like(t, dtype=torch.float32) for n, t in p0.items()}
     v = {n: torch.zeros_like(t, dtype=torch.float32) for n, t in p0.items()}

@@ -7,6 +7,7 @@ import torch
 
 from gpubench import control
 from gpubench.check import judge
+from gpubench.core import spec
 from gpubench.tests import tiny
 
 SEEDS = [2 ** 31 + 21, 2 ** 31 + 22]
@@ -32,3 +33,14 @@ def test_fp8_control_and_half_batch_fail_the_train_limits(seed):
     for kind in ("control", "half_batch"):
         correct, checks = judge(out[kind], cell.limits)
         assert not correct, (kind, checks)
+
+
+def test_control_refuses_a_driver_it_has_none_for(monkeypatch, capsys):
+    cell = tiny.cell("mixtral-8x22b.prefill")
+    cell.traffic["driver"] = "decode"
+    # refused before the look for a card, with a message and exit code 2
+    monkeypatch.setattr(spec, "cell", lambda name: cell)
+    assert control.main(["--workload", cell.name, "--seeds", "1",
+                         "--control"]) == 2
+    assert "no control for the driver 'decode'" in capsys.readouterr().err
+    assert sorted(control.READINGS) == ["prefill", "train"]

@@ -1,10 +1,12 @@
-"""The benchmark's counts against values worked by hand at small shapes."""
+"""The benchmark's counts against values worked by hand at small shapes:
+the decoder family's (``counts/decoder.py``) and the shared ones
+(``counts/work.py``)."""
 import dataclasses
 
 import pytest
 
-from gpubench.core.arch import Arch
-from gpubench.counts import peaks, work
+from gpubench.arch.decoder import Arch
+from gpubench.counts import decoder, peaks, work
 
 DENSE = Arch(name="d", family="dense", n_layers=2, d_model=8, n_heads=3,
              n_kv_heads=2, d_head=4, d_ff=16, vocab=10)
@@ -26,28 +28,28 @@ def test_dense_layer_flops_by_hand():
     # B 2, S 3: T 6. q 2*6*8*12, k and v 2*2*6*8*8, o 2*6*12*8,
     # scores and values 4*4*3*(2*6 pairs), FFN 3*2*6*8*16
     want = 1152 + 1536 + 1152 + 576 + 4608
-    assert work.layer_flops(DENSE, 2, 3) == want
+    assert decoder.layer_flops(DENSE, 2, 3) == want
 
 
 def test_padded_heads_do_no_work():
     padded = dataclasses.replace(DENSE, n_heads=4)
-    assert work.layer_flops(padded, 2, 3) > work.layer_flops(DENSE, 2, 3)
+    flops = decoder.layer_flops
+    assert flops(padded, 2, 3) > flops(DENSE, 2, 3)
     # a fourth head adds its projections and its pairs, nothing else
     extra = 2 * 6 * 8 * 4 + 2 * 6 * 4 * 8 + 4 * 4 * 2 * 6
-    assert work.layer_flops(padded, 2, 3) - work.layer_flops(DENSE, 2, 3) \
-        == extra
+    assert flops(padded, 2, 3) - flops(DENSE, 2, 3) == extra
 
 
 def test_prefill_and_train_flops():
-    layers = 2 * work.layer_flops(DENSE, 2, 3)
-    assert work.prefill_flops(DENSE, 2, 3) == layers + 2 * 2 * 8 * 10
-    assert work.train_flops(DENSE, 2, 3) == 3 * (layers + 2 * 6 * 8 * 10)
+    layers = 2 * decoder.layer_flops(DENSE, 2, 3)
+    assert decoder.prefill_flops(DENSE, 2, 3) == layers + 2 * 2 * 8 * 10
+    assert decoder.train_flops(DENSE, 2, 3) == 3 * (layers + 2 * 6 * 8 * 10)
 
 
 def test_moe_flops_count_top_k_experts():
     # T 4: router 2*4*8*4, experts 3 products * 2*(4*2 routed)*8*16
     attn = 2 * 4 * 8 * (8 + 8) + 2 * 4 * 8 * 8 + 4 * 4 * 2 * 10
-    assert work.layer_flops(MOE, 1, 4) == attn + 256 + 6144
+    assert decoder.layer_flops(MOE, 1, 4) == attn + 256 + 6144
 
 
 @pytest.mark.parametrize("per_expert", [(8, 0, 0, 0), (5, 1, 1, 1),
@@ -55,7 +57,7 @@ def test_moe_flops_count_top_k_experts():
 def test_k5_counts_routed_rows_however_uneven(per_expert):
     # 4 tokens top-2: 8 routed rows, however the router spreads them; a
     # capacity slot left empty is not work
-    launches = work.k5_launches(MOE, 1, 4)
+    launches = decoder.k5_launches(MOE, 1, 4)
     assert len(launches) == 3 * MOE.n_layers
     ops = sum(2 * n * 8 * 16 for n in per_expert)
     byts = 4 * 8 * 16 * 2 + sum(per_expert) * (8 + 16) * 2
@@ -63,7 +65,7 @@ def test_k5_counts_routed_rows_however_uneven(per_expert):
 
 
 def test_k3_counts():
-    (ops, byts), = work.k3_launches(dataclasses.replace(MOE), 2, 3)
+    (ops, byts), = decoder.k3_launches(dataclasses.replace(MOE), 2, 3)
     assert ops == 4 * 4 * 2 * 2 * 6
     assert byts == 2 * 3 * 4 * (2 * 2 + 2 * 1) * 2
 

@@ -1,5 +1,6 @@
 """The harness finds every cell's files by name, BENCHMARK.json keeps to
 the benchmark's contract, and the traffic repeats exactly for a seed."""
+import copy
 import json
 import re
 
@@ -7,26 +8,52 @@ import pytest
 import torch
 
 from gpubench.core import spec, traffic
-from gpubench.core.arch import Arch
 
 BENCH = spec.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+DRIVERS = sorted(p.stem for p in (spec.BENCH / "drivers").glob("*.py")
+                 if p.stem != "__init__")
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_every_cell_finds_its_files(name):
-    c = spec.cell(name)
+def _finds_its_files(c):
     assert c.config["name"] == c.workload["config"]
-    assert c.driver in ("prefill", "train")
-    assert (spec.BENCH / "drivers" / f"{c.driver}.py").exists()
+    for f in c.files():
+        assert f.exists(), f"{c.name} names {f.relative_to(spec.ROOT)}"
+    for role, supplied in spec.ROLES.items():
+        module = c.family.module(role)
+        assert all(callable(getattr(module, n, None)) for n in supplied)
     assert c.limits["numbers"]
     assert any(m["name"] == "setup_s" for m in c.end_to_end)
     assert len(c.end_to_end) >= 2 and c.per_layer
     for m in c.per_layer:
         assert callable(spec.metric_reader(m["name"]))
         assert m["moves"] in {e["name"] for e in c.end_to_end}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_cell_finds_its_files(name):
+    _finds_its_files(spec.cell(name))
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_a_cell_finds_any_driver_that_exists(driver):
+    c = copy.deepcopy(spec.cell(CELLS[0]))
+    c.traffic["driver"] = driver
+    _finds_its_files(c)
+
+
+@pytest.mark.parametrize("part,name", [("driver", "decode"),
+                                       ("family", "no-such-family")])
+def test_a_cell_that_names_a_missing_file_fails(part, name):
+    c = copy.deepcopy(spec.cell(CELLS[0]))
+    if part == "driver":
+        c.traffic["driver"] = name
+    else:
+        c.config["reference"] = name
+    with pytest.raises(AssertionError, match=name):
+        _finds_its_files(c)
 
 
 def test_a_cell_that_is_not_there():
@@ -67,8 +94,8 @@ def test_config_names_its_changes(name):
     cfg = spec.load_json(spec.ROOT / c["file"])
     assert cfg["source"] == c["source"]
     assert sorted(cfg["changed"]) == sorted(c["reduced"])
-    a = Arch.from_config(cfg)
-    assert a.n_heads * a.d_head == a.d_model
+    # the family's own check: for the decoder, the heads add up to d_model
+    spec.family(cfg).arch.check_config(cfg)
 
 
 def test_prefill_traffic_repeats_for_a_seed():

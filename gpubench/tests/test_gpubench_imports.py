@@ -59,13 +59,45 @@ def _imports(path: Path) -> set:
 
 
 def test_references_import_neither_jax_nor_the_program():
-    files = sorted((BENCH / "reference").glob("*.py")) + sorted(
-        (BENCH / "core").glob("*.py")) + sorted((BENCH / "counts")
-                                                .glob("*.py"))
+    files = [f for d in ("reference", "core", "counts", "arch")
+             for f in sorted((BENCH / d).glob("*.py"))]
     assert files
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
         assert not bad, f"{f.name} imports {bad}"
+
+
+def _modules(path: Path) -> set:
+    """Every module ``path`` imports, ``from a import b`` as both ``a`` and
+    ``a.b``."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names |= {node.module} | {f"{node.module}.{a.name}"
+                                      for a in node.names}
+    return names
+
+
+def test_only_a_familys_own_files_name_it():
+    # the drivers, run.py, control.py and the shared modules reach a
+    # family's modules through spec.family alone
+    from gpubench.core import spec
+    family_files = {BENCH / role / f"{p.stem}.py" for role in spec.ROLES
+                    for p in (BENCH / role).glob("*.py")
+                    if p.stem not in ("__init__", "work")}
+    assert BENCH / "reference" / "decoder.py" in family_files
+    family_modules = {f"gpubench.{f.parent.name}.{f.stem}"
+                      for f in family_files}
+    shared = [f for f in sorted(BENCH.rglob("*.py"))
+              if f not in family_files and "tests" not in f.parts]
+    shared.append(BENCH / "tests" / "tiny.py")
+    assert BENCH / "run.py" in shared and BENCH / "control.py" in shared
+    for f in shared:
+        bad = _modules(f) & family_modules
+        assert not bad, f"{f.relative_to(BENCH)} imports {bad}"
 
 
 def test_run_without_the_program_fails(tmp_path):

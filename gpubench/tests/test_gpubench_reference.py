@@ -1,5 +1,6 @@
-"""The plain reference against repro_torch's plain route (no kernels) at
-the reduced sizes of both families, in float32 on the CPU: the same
+"""The decoder family's plain reference against repro_torch's plain route
+(no kernels) at the reduced sizes of both its kinds (experts and dense),
+in float32 on the CPU: the same
 weights and inputs give the same logits, no expert row dropped, the same
 losses and the same first steps."""
 import dataclasses
@@ -7,9 +8,10 @@ import dataclasses
 import pytest
 import torch
 
+from gpubench.arch import decoder as arch
+from gpubench.arch.decoder import Arch
 from gpubench.core import weights as W
-from gpubench.core.arch import Arch
-from gpubench.drivers import port
+from gpubench.port import decoder as port
 from gpubench.reference import decoder as ref
 from gpubench.tests import tiny
 
@@ -27,7 +29,7 @@ def _model(name, **kw):
 
 def test_prefill_logits_match_the_port():
     cell, a, model = _model("mixtral-8x22b.prefill")
-    W.load_port(dict(model.named_parameters()), a, 3, "cpu")
+    W.load_port(dict(model.named_parameters()), arch, a, 3, "cpu")
     tokens = torch.randint(0, a.vocab, (2, 64), generator=torch.Generator()
                            .manual_seed(0))
     with torch.no_grad():
@@ -41,7 +43,7 @@ def test_port_drops_no_token_at_the_configured_capacity():
     from repro_torch.models import moe as moe_mod
     cell, a, model = _model("mixtral-8x22b.prefill")
     g = torch.Generator().manual_seed(1)
-    p = {k: v for k, v in W.layer(a, 5, 0, "cpu")}
+    p = {k: v for k, v in W.layer(arch, a, 5, 0, "cpu")}
     # every token leans to expert 0: at the port's default capacity
     # (1.25) its groups overflow
     p["moe.router"][:, 0] += 0.5
@@ -78,7 +80,7 @@ def test_training_steps_match_the_port():
                         weight_decay=o["weight_decay"]),
         remat=False, device="cpu")
     params = {n: p.detach() for n, p in model.named_parameters()}
-    W.load_port(params, a, 9, "cpu")
+    W.load_port(params, arch, a, 9, "cpu")
     p0 = {n: t.clone() for n, t in params.items()}
     state = opt.init(params)
     pool = train_pool(cell.traffic, a.vocab, 9, "cpu")

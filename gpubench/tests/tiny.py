@@ -1,27 +1,20 @@
 """The benchmark's cells cut to sizes a CPU test can run: the same
-drivers, references, checks and limits, on tiny widths in float32."""
+drivers, references, checks and limits, on tiny widths in float32. The
+configuration's tiny sizes are its family's (``arch/<family>.py``'s
+``tiny``), the traffic's its driver's (``drivers/<driver>.py``'s
+``TINY``)."""
 from __future__ import annotations
 
 import copy
+import importlib
 
 from gpubench.core import spec
-
-MOE = dict(hidden_size=64, intermediate_size=64, num_attention_heads=4,
-           num_key_value_heads=2, num_hidden_layers=2, num_local_experts=4,
-           vocab_size=128, torch_dtype="float32")
-DENSE = dict(hidden_size=64, intermediate_size=64, num_attention_heads=3,
-             num_key_value_heads=1, num_hidden_layers=2, vocab_size=128,
-             torch_dtype="float32")
 
 
 def cell(name: str):
     """The cell ``name`` of BENCHMARK.json at a tiny size."""
     c = copy.deepcopy(spec.cell(name))
-    if c.driver == "prefill":
-        c.config.update(MOE)
-        c.traffic.update(shapes=[[8, 16], [4, 32], [2, 64]],
-                         pool_batches=6, trace_batches=3, warmup_cycles=1)
-    else:
-        c.config.update(DENSE, hidden_size=96)
-        c.traffic.update(batch=4, seq=16, pool_batches=4, chunk_tokens=32)
+    c.config.update(c.family.arch.tiny(c.config))
+    driver = importlib.import_module(f"gpubench.drivers.{c.driver}")
+    c.traffic.update(driver.TINY)
     return c
