@@ -68,7 +68,13 @@ printing JSON lines:
    CUDA events (SDPA given the window as a boolean mask where it is
    narrower than the keys), the bound (the pairs the mask keeps), TFLOP/s,
    and in bf16 the floor of the work K3 issues (P V on both parts of P,
-   the diagonal tiles whole).
+   the diagonal tiles whole). Then, in bf16, latent attention's q/k 192
+   against v 128 at kimi-k2-instruct's three prefill shapes (``K3_MLA``:
+   64 heads, 32,768 tokens a batch, q, k and v laid out as
+   ``mla_train`` passes them, the YaRN scale): K3 against its plain
+   version on batch row 0's first 4 heads (the plain version's float32
+   scores of a whole batch do not fit), and K3 and SDPA ms over CUDA
+   events.
 7. ``model`` — llama3.2-3b at full width in bf16 on ``cuda:0`` through
    ``build_model`` and the inference demo's functions: batch 4, prompt
    2048, 16 greedy tokens. The launch counts are set to 0 just before
@@ -287,6 +293,15 @@ printing JSON lines:
    and smollm's capacity each more than 5× the other's and within
    ``SITES_TOL`` of the ratios 2.13's records give, a kernel
    launched (the dense store: K2); the phase's seconds.
+20. ``mla`` — the benchmark's kimi-k2-instruct (``gpubench``'s
+   configuration and seeded weights: 9 of 61 layers at full width, 48 of
+   384 experts held) through ``build_model`` with the kernels on: a
+   prefill of [2, 4096] (K3 at q/k 192, v 128, once a layer), then 8
+   ``decode_step``s through the latent cache; the logits of every one of
+   the 9 positions against the benchmark's float32 reference over the
+   prompt and the tokens fed so far, by the cell's ``miss``, the median
+   within its ``miss_median`` limit (``MLA``). Not in the default run:
+   run it by name (``NAMED_PHASES``).
 
 Every logit, state and oracle output these phases compare must be
 finite, on each route, and a NaN in any layer's comparison fails it.
@@ -300,7 +315,8 @@ a checkout, it exits non-zero and prints no result.
 ``main_path`` (4), ``service`` (5), ``k3`` (6), ``model`` (7), ``k4`` (8),
 ``rwkv`` (9), ``k5`` (10), ``moe`` (11), ``kimi`` (12), ``train`` (13),
 ``launch`` (14), ``vlm`` (15), ``encdec`` (16), ``hybrid`` (17),
-``spmd`` (18) and ``sites`` (19), after ``env``, and then stops without
+``spmd`` (18), ``sites`` (19) and ``mla`` (20), after ``env``, and then
+stops without
 the closing lines: ``--phases k3``, ``k4`` or ``k5`` is
 the quick check of a new K3, K4 or K5 build, ``--phases service`` runs the
 service alone, ``--phases train`` the federated training alone,
@@ -386,6 +402,13 @@ K3_CASES = [  # name, B, H, KV, S, Sk, dh, causal, window
     ("producer ahead, dh 128", 32, 64, 1, 128, 256, 128, False, 0),
     ("producer ahead, dh 64", 32, 64, 1, 128, 256, 64, False, 0),
 ]
+# latent attention on K3 (bf16, q/k 192 = 128 + 64 rope, v 128, MLA's kv
+# heads = heads): kimi-k2-instruct's prefill shapes, the scale YaRN's
+# 192^-0.5 (0.1 ln 32 + 1)^2. name, B, H, S
+K3_MLA = [("kimi-k2-instruct 8x4096", 8, 64, 4096),
+          ("kimi-k2-instruct 4x8192", 4, 64, 8192),
+          ("kimi-k2-instruct 2x16384", 2, 64, 16384)]
+K3_MLA_SCALE = 0.1308608
 # the K3 cases timed against SDPA (the attention shapes of the six
 # prefills and the encoder the script runs); the first is the kernels line's
 K3_TIMED = ("llama3.2-3b prefill", "mixtral-8x22b prefill", "kimi-k2 prefill",
@@ -597,6 +620,8 @@ SITES_TOL = 0.10
 PHASES = ("kernels", "ops", "main_path", "service", "k3", "model", "k4",
           "rwkv", "k5", "moe", "kimi", "train", "launch", "vlm", "encdec",
           "hybrid", "spmd", "sites")
+# run only where named (``--phases``): not part of the default run
+NAMED_PHASES = ("mla",)
 FULL_R, FULL_W, FULL_S = 1 << 20, 64, 4
 
 
@@ -1025,9 +1050,70 @@ def check_flash_attention(torch):
                            "the limit")
             del q, k, v, out, want, diff
             torch.cuda.empty_cache()
+    bad += check_k3_mla(torch, gen, timed)
     # every case runs and reports before a failure stops the phase
     require(not bad, f"K3 != plain: {bad}")
     return timed
+
+
+def mla_case(torch, gen, B, H, S):
+    """q [B, S, H, 192]; k = [k_nope | the one k_pe broadcast] made whole;
+    v a view of the [k_nope | v] product's last 128 columns; each seen as
+    [B, H, S, .] through a transpose, as ``mla_train`` passes them."""
+    dev = gen.device
+    q = torch.randn((B, S, H, 192), generator=gen, device=dev).bfloat16()
+    kv = torch.randn((B, S, H, 256), generator=gen, device=dev).bfloat16()
+    pe = torch.randn((B, S, 1, 64), generator=gen, device=dev).bfloat16()
+    k = torch.cat([kv[..., :128], pe.expand(B, S, H, 64)], dim=-1)
+    return q.transpose(1, 2), k.transpose(1, 2), kv[..., 128:].transpose(1, 2)
+
+
+def check_k3_mla(torch, gen, timed):
+    """K3 at q/k 192, v 128 (``K3_MLA``): against the plain version on
+    batch row 0's first 4 heads, then timed with SDPA beside it (where
+    SDPA takes q/k and v of two widths). Returns the failures."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    atol, rtol = ATTN_TOL["torch.bfloat16"]
+    bad = []
+    for name, B, H, S in K3_MLA:
+        q, k, v = mla_case(torch, gen, B, H, S)
+        out = fa.flash_attention(q, k, v, causal=True, scale=K3_MLA_SCALE)
+        part = [t[:1, :4] for t in (q, k, v)]
+        want = fa.flash_attention_plain(*part, causal=True,
+                                        scale=K3_MLA_SCALE).float()
+        diff = (out[:1, :4].float() - want).abs()
+        ratio = float((diff / (atol + rtol * want.abs())).max())
+        pairs = attn_pairs(S, S, True, 0)
+        flops = 2 * (192 + 128) * B * H * pairs
+        nbytes = 2 * B * H * S * (2 * 192 + 2 * 128)
+        ms = cuda_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, scale=K3_MLA_SCALE), 10)
+        try:
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=K3_MLA_SCALE), 10)
+        except RuntimeError as e:  # no SDPA backend for these widths
+            lib_ms = f"{type(e).__name__}: {str(e)[:120]}"
+        op_ms = 1e3 * flops / BF16_FLOPS
+        byte_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        line = dict(name="flash_attention", case=name, dtype="torch.bfloat16",
+                    B=B, H=H, KV=H, S=S, Sk=S, dh=192, dv=128, causal=True,
+                    window=0, max_abs_err=float(diff.max()), atol=atol,
+                    rtol=rtol, err_over_limit=ratio, checked="b 0, h 0-3",
+                    ms=ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
+                    bound_ms=max(op_ms, byte_ms),
+                    bound_by="operations" if op_ms >= byte_ms else "bytes",
+                    tflops=flops / ms / 1e9,
+                    bound_share=max(op_ms, byte_ms) / ms)
+        timed[(name, "torch.bfloat16")] = line
+        emit("kernel", **line)
+        if not ratio <= 1.0:
+            bad.append(f"{name}: max_abs_err {float(diff.max())}, {ratio} x "
+                       "the limit")
+        del q, k, v, out, part, want, diff
+        torch.cuda.empty_cache()
+    return bad
 
 
 def attn_pairs(S, Sk, causal, window) -> int:
@@ -1897,6 +1983,74 @@ def run_kimi(torch):
     require(launches["moe_gemm"] == 3 * L * gen,
             f"K5 launched {launches['moe_gemm']} times, want {3 * L * gen}")
     require(route["ok"], f"K3/K5 route != einsum route: {route}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 20: kimi-k2-instruct's decode through the latent cache
+
+# the benchmark's kimi-k2-instruct (9 of 61 layers at full width, 48 of
+# 384 experts held): a prefill of [2, 4096], then 8 decode steps, each
+# step's logits against the benchmark's float32 reference over the prompt
+# and the tokens fed so far, by the cell's ``miss`` (gpubench/check)
+MLA = dict(cell="kimi-k2-instruct.prefill", batch=2, prompt=4096, gen=8,
+           seed=2 ** 31 + 77)
+
+
+def run_mla(torch):
+    """kimi-k2-instruct through ``build_model`` on the card (MLA on K3 at
+    192/128, K5 over the held experts): prefill, then ``decode_step``
+    through the latent cache in the absorbed form; every position's
+    logits against the reference's full forward, the median ``miss``
+    within the cell's ``miss_median`` limit."""
+    sys.path.insert(0, str(ROOT))
+    from gpubench.check.prefill import per_request
+    from gpubench.core import card, spec
+    from gpubench.core import weights as W
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cell = spec.cell(MLA["cell"])
+    fam = cell.family
+    a = fam.arch.sizes(cell.config)
+    B, P, n, seed = MLA["batch"], MLA["prompt"], MLA["gen"], MLA["seed"]
+    dev = torch.device("cuda:0")
+    model = build_model(fam.port.model_config(cell.config), use_kernels=True,
+                        device=dev)
+    W.load_port(dict(model.named_parameters()), fam.arch, a, seed, dev)
+    toks = torch.randint(0, a.vocab, (B, P + n), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    with torch.inference_mode():
+        fa.flash_attention.launches = 0
+        logits, cache = model.prefill(toks[:, :P], P + n)
+        k3 = fa.flash_attention.launches
+        got = [logits[:, -1, : a.vocab].float().cpu()]
+        t = time.perf_counter()
+        for j in range(n):
+            step, cache = model.decode_step(cache, toks[:, P + j:P + j + 1])
+            got.append(step[:, 0, : a.vocab].float().cpu())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+    cache_shape = list(cache.ckv.shape)
+    del model, cache, logits, step
+    card.free(dev)
+    prompts = [toks[b, : P + j] for j in range(n + 1) for b in range(B)]
+    refs = fam.reference.prefill_logits(a, seed, prompts, dev)
+    misses = [per_request(got[j][b], int(got[j][b].argmax()),
+                          refs[j * B + b])[1]
+              for j in range(n + 1) for b in range(B)]
+    limit = cell.limits["numbers"]["miss_median"]["limit"]
+    result = dict(cell=MLA["cell"], batch=B, prompt=P, gen=n,
+                  latent_cache=cache_shape, k3_launches=k3,
+                  decode_ms_per_step=1e3 * decode_s / n,
+                  miss=[round(m, 5) for m in misses],
+                  miss_prefill=[round(m, 5) for m in misses[:B]],
+                  miss_decode_median=statistics.median(misses[B:]),
+                  miss_median=statistics.median(misses), limit=limit)
+    emit("mla", **result)
+    require(k3 == a.n_layers, f"K3 launched {k3} times, want {a.n_layers}")
+    require(result["miss_median"] <= limit,
+            f"decode against the reference: {result}")
     return result
 
 
@@ -3597,11 +3751,12 @@ def main(argv=None) -> int:
     # script inside its time (PERF.md §4)
     ap.add_argument("--until-step", type=int, default=131)
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + NAMED_PHASES))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases: not in {PHASES}: {phases}")
+    if not set(phases) <= set(PHASES + NAMED_PHASES):
+        ap.error(f"--phases: not in {PHASES + NAMED_PHASES}: {phases}")
 
     import torch
     if not torch.cuda.is_available():
@@ -3669,6 +3824,8 @@ def main(argv=None) -> int:
         moe = run_moe(torch)
     if "kimi" in phases:
         run_kimi(torch)
+    if "mla" in phases:
+        run_mla(torch)
     if "train" in phases:
         run_train(torch)
     if "launch" in phases:
@@ -3683,7 +3840,7 @@ def main(argv=None) -> int:
         run_spmd(torch)
     if "sites" in phases:
         run_sites(torch, cuda_bk, host)
-    if set(phases) != set(PHASES):
+    if not set(PHASES) <= set(phases):
         return 0
     kern["flash_attention"] = attn[(K3_TIMED[0], "torch.bfloat16")]
     launches["flash_attention"] = model["k3_launches"]

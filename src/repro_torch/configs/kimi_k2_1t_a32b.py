@@ -1,9 +1,15 @@
 """kimi-k2-1t-a32b [moe] — trillion-param MoE: 384 experts, top-8, one
 shared expert, moe_ff=2048. [arXiv:2501.kimi2 — paper-table entry]
 
-The reference's config. d_head = 7168/64 = 112, which K3 takes (as it
-takes every d_head of the repo's configs), so the full-width model's
-prefill attention runs on K3 on the card; its reduced config has d_head 64.
+The reference's config, mirrored so that the registry stays equal to the
+JAX package's: a paper-table guess (GQA 64/8 heads of 112, softmax
+routing, rope theta 1e6, no leading dense layer), not the published
+model. The published Kimi-K2-Instruct (latent attention with q/k 192 and
+v 128, YaRN, sigmoid routing with a selection bias, a leading dense
+layer) is ``gpubench/configs/kimi-k2-instruct.json``, which
+``gpubench/port/mla_moe.py`` turns into its ``ModelConfig``.
+d_head = 7168/64 = 112, which K3 takes, so the full-width model's prefill
+attention runs on K3 on the card; its reduced config has d_head 64.
 """
 import dataclasses
 

@@ -9,7 +9,9 @@
 //   Scores, the running max, the denominator (floored at 1e-30) and the
 //   accumulator are float32; the output is in the input's type. Like the
 //   Pallas kernel it takes any head dim the repo's configs use: dh 32, 64,
-//   80, 112 and 128.
+//   80, 112 and 128. The bf16 kernel also takes q and k of 192 against v
+//   of 128 (latent attention: 128 without rope + 64 with it; the output
+//   is v's width).
 //
 // Contract: equal to the plain PyTorch version
 // (repro_torch.kernels.flash_attention.flash_attention_plain) up to float32
@@ -51,16 +53,21 @@
 //   softmax in float32, splits P into hi and lo, and runs
 //   O += P_lo V + P_hi V as wgmma m64n{dh}k16 with A from registers (the
 //   S accumulator's layout is the A operand's) and V as the transposed
-//   (MN-major) B operand. Inside a warpgroup the products of two tiles
-//   overlap: S of tile j and P V of tile j - 1 are issued together, and
-//   tile j's softmax runs while P V of tile j - 1 does; the stage of tile
-//   j - 1 is freed when its P V has waited. setmaxnreg moves the
-//   producer's registers to the consumers (O, S and the two parts of P are
-//   192 a thread at dh 128). The epilogue divides by max(l, 1e-30) and
-//   stores bf16 pairs from registers, masked past S, while the producer
+//   (MN-major) B operand. At q/k 192 against v 128 (FlashAttention-3's hdim
+//   192 / vdim 128 for DeepSeek-V3's prefill is the precedent) Q and K are
+//   three boxes and V two; P V stays m64n128. Two stages then fit, and K and
+//   V free their stages apart: K when its Q K^T has waited, V when its P V
+//   has, so the producer loads tile j + 1's K while tile j's P V still reads
+//   V. Where q/k and v are alike, one barrier frees both. Inside a warpgroup
+//   the products of two tiles overlap: S of tile j and P V of tile j - 1 are
+//   issued together, and tile j's softmax runs while P V of tile j - 1 does;
+//   the stage of tile j - 1 is freed when its P V has waited. setmaxnreg
+//   moves the producer's registers to the consumers (O, S and the two parts
+//   of P are 192 a thread at dh 128). The epilogue divides by max(l, 1e-30)
+//   and stores bf16 pairs from registers, masked past S, while the producer
 //   loads the next item. Ping-pong between the warpgroups (named barriers
-//   taking turns to issue their products) was slower on the H100 and is
-//   not used (PERF.md).
+//   taking turns to issue their products) was slower on the H100 and is not
+//   used (PERF.md).
 // * float32: 256 threads on the CUDA cores (no tensor-core rate would keep
 //   float32 accuracy). Each thread holds a 4 x 4 score tile and 4 rows x
 //   dh/16 columns of the accumulator in registers; K^T, V and P^T go
@@ -143,15 +150,18 @@ constexpr int kSmemMax = 232448;  // an H100 block's opt-in limit
 constexpr int kSmemExtra = 1024 + 256;  // alignment and the barriers
 
 // Q, K and V tiles in shared memory: rows of 64 bf16 (128 bytes, 128B
-// swizzle) per box, dh padded to one or two boxes
-template <int DH>
+// swizzle) per box, a width padded to whole boxes: q/k DQK, v DV
+template <int DQK, int DV>
 struct Tile {
-  static constexpr int kBoxes = DH <= 64 ? 1 : 2;
+  static constexpr int kQKBoxes = (DQK + 63) / 64;
+  static constexpr int kVBoxes = (DV + 63) / 64;
+  static constexpr bool kSplit = DQK != DV;  // K and V free their stages apart
   static constexpr int kQBox = kTQ * 128;  // bytes of one 64-column box
   static constexpr int kKBox = kTK * 128;
-  static constexpr int kQBytes = kBoxes * kQBox;
-  static constexpr int kKVBytes = kBoxes * kKBox;  // K or V of a stage
-  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kQBytes = kQKBoxes * kQBox;
+  static constexpr int kKBytes = kQKBoxes * kKBox;  // K of a stage
+  static constexpr int kVBytes = kVBoxes * kKBox;   // V of a stage
+  static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kFit = (kSmemMax - kQBytes - kSmemExtra) / kStageBytes;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes + kSmemExtra;
@@ -300,26 +310,28 @@ struct Rows {
   }
 };
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsW, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                                  const __grid_constant__ CUtensorMap tmap_k,
                                  const __grid_constant__ CUtensorMap tmap_v,
                                  const Dims p) {
-  using T = Tile<DH>;
+  using T = Tile<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   // 128B-swizzled tiles start on 1024-byte boundaries
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sq = smem;
   auto sk = [&](int s) { return smem + T::kQBytes + s * T::kStageBytes; };
-  auto sv = [&](int s) { return sk(s) + T::kKVBytes; };
+  auto sv = [&](int s) { return sk(s) + T::kKBytes; };
   uint64_t* q_full = reinterpret_cast<uint64_t*>(
       smem + T::kQBytes + T::kStages * T::kStageBytes);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_full + 2;
   uint64_t* v_full = k_full + T::kStages;
+  // a stage's K and V read (K alone where they free apart: T::kSplit)
   uint64_t* kv_empty = v_full + T::kStages;
+  uint64_t* v_empty = kv_empty + T::kStages;  // T::kSplit: its V read
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);  // the producer's arrival + the TMA bytes
@@ -328,6 +340,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&kv_empty[s], kConsumerWarps);
+      if constexpr (T::kSplit) mbar_init(&v_empty[s], kConsumerWarps);
     }
     fence_barrier_init();
   }
@@ -348,19 +361,20 @@ __global__ void __launch_bounds__(kThreadsW, 1)
         q_phase ^= 1;
         mbar_arrive_expect_tx(q_full, T::kQBytes);
 #pragma unroll
-        for (int c = 0; c < T::kBoxes; ++c)
+        for (int c = 0; c < T::kQKBoxes; ++c)
           tma_load_4d(sq + c * T::kQBox, &tmap_q, q_full, 64 * c, it.q0,
                       it.h, it.b);
         for (int kj = it.first; kj <= it.last; ++kj) {
           mbar_wait(&kv_empty[s], phase ^ 1);
-          mbar_arrive_expect_tx(&k_full[s], T::kKVBytes);
+          mbar_arrive_expect_tx(&k_full[s], T::kKBytes);
 #pragma unroll
-          for (int c = 0; c < T::kBoxes; ++c)
+          for (int c = 0; c < T::kQKBoxes; ++c)
             tma_load_4d(sk(s) + c * T::kKBox, &tmap_k, &k_full[s], 64 * c,
                         kj * kTK, kvh, it.b);
-          mbar_arrive_expect_tx(&v_full[s], T::kKVBytes);
+          if constexpr (T::kSplit) mbar_wait(&v_empty[s], phase ^ 1);
+          mbar_arrive_expect_tx(&v_full[s], T::kVBytes);
 #pragma unroll
-          for (int c = 0; c < T::kBoxes; ++c)
+          for (int c = 0; c < T::kVBoxes; ++c)
             tma_load_4d(sv(s) + c * T::kKBox, &tmap_v, &v_full[s], 64 * c,
                         kj * kTK, kvh, it.b);
           if (++s == T::kStages) {
@@ -381,16 +395,23 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     const uint8_t* qa = sq + wg * 64 * 128;  // the warpgroup's 64 rows of Q
     // S = Q K^T of the stage's K tile, issued (not waited for)
     auto issue_qk = [&](float (&sc)[kTK / 2], int st) {
+      const uint8_t* q = qa;
+      if constexpr (T::kSplit) {
+        // twelve Q descriptors hoisted out of the key loop would hold
+        // registers the consumer lacks at q/k 192 (ptxas spilled): an
+        // opaque base makes each one formed next to its product
+        asm volatile("" : "+l"(q));
+      }
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         wgmma_bf16<0, 0>(
-            sc, desc_sw128(qa + (kk / 4) * T::kQBox + 32 * (kk % 4), 16, 1024),
+            sc, desc_sw128(q + (kk / 4) * T::kQBox + 32 * (kk % 4), 16, 1024),
             desc_sw128(sk(st) + (kk / 4) * T::kKBox + 32 * (kk % 4), 16, 1024),
             kk > 0);
       wgmma_commit();
     };
-    // O += P_lo V + P_hi V of the stage's V tile [keys, dh], MN-major
-    auto issue_pv = [&](float (&o)[DH / 2], uint32_t (&phi)[kTK / 4],
+    // O += P_lo V + P_hi V of the stage's V tile [keys, DV], MN-major
+    auto issue_pv = [&](float (&o)[DV / 2], uint32_t (&phi)[kTK / 4],
                         uint32_t (&plo)[kTK / 4], int st) {
 #pragma unroll
       for (int kk = 0; kk < kTK / 16; ++kk) {
@@ -406,9 +427,9 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       const Item it(p, w);
       const int row_lo = it.q0 + 64 * wg;
       const Rows rows(p, row_lo + p.Sk - p.S, r0, c0);
-      float o[DH / 2];
+      float o[DV / 2];
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+      for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
       // running max in log2 units and this thread's part of the row sums
       float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
       float alpha0, alpha1;
@@ -425,6 +446,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
         wgmma_wait<0>();
         fence_regs(sc);
         if (it.first == it.last && lane == 0) mbar_arrive(q_empty);
+        if constexpr (T::kSplit)
+          if (lane == 0) mbar_arrive(&kv_empty[s]);  // its K is read
         rows.softmax(sc, it.first * kTK, m0, m1, l0, l1, alpha0, alpha1);
         to_p(sc, phi, plo);
       }
@@ -446,14 +469,17 @@ __global__ void __launch_bounds__(kThreadsW, 1)
         wgmma_wait<1>();  // S has arrived
         fence_regs(sc);
         if (kj == it.last && lane == 0) mbar_arrive(q_empty);
+        if constexpr (T::kSplit)
+          if (lane == 0) mbar_arrive(&kv_empty[s]);  // its K is read
         rows.softmax(sc, kj * kTK, m0, m1, l0, l1, alpha0, alpha1);
         wgmma_wait<0>();  // P V of the previous tile has too
         fence_regs(o);
         fence_regs(phi);
         fence_regs(plo);
-        if (lane == 0) mbar_arrive(&kv_empty[s_prev]);  // its stage is read
+        if (lane == 0)  // its stage is read (its V, where they free apart)
+          mbar_arrive(T::kSplit ? &v_empty[s_prev] : &kv_empty[s_prev]);
 #pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o[4 * j] *= alpha0;
           o[4 * j + 1] *= alpha0;
           o[4 * j + 2] *= alpha1;
@@ -475,7 +501,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       fence_regs(o);
       fence_regs(phi);
       fence_regs(plo);
-      if (lane == 0) mbar_arrive(&kv_empty[s_prev]);
+      if (lane == 0)
+        mbar_arrive(T::kSplit ? &v_empty[s_prev] : &kv_empty[s_prev]);
 
       // O / max(l, 1e-30) in bf16 pairs, rows past S not stored
 #pragma unroll
@@ -490,7 +517,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
       const int row0 = row_lo + r0;
       const int row1 = row0 + 8;
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int col = 8 * j + c0;
         if (row0 < p.S)
           *reinterpret_cast<uint32_t*>(out + (long long)row0 * p.o_ss + col) =
@@ -683,15 +710,15 @@ int map_4d(CUtensorMap* m, const void* base, int dh, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_wgmma(const Params& a, int B, int H, int KV, cudaStream_t st) {
-  using T = Tile<DH>;
+  using T = Tile<DQK, DV>;
   CUtensorMap tq, tk, tv;
-  int err = map_4d(&tq, a.q, DH, a.S, H, B, a.q_ss, a.q_sh, a.q_sb, kTQ);
+  int err = map_4d(&tq, a.q, DQK, a.S, H, B, a.q_ss, a.q_sh, a.q_sb, kTQ);
   if (err == 0)
-    err = map_4d(&tk, a.k, DH, a.Sk, KV, B, a.k_ss, a.k_sh, a.k_sb, kTK);
+    err = map_4d(&tk, a.k, DQK, a.Sk, KV, B, a.k_ss, a.k_sh, a.k_sb, kTK);
   if (err == 0)
-    err = map_4d(&tv, a.v, DH, a.Sk, KV, B, a.v_ss, a.v_sh, a.v_sb, kTK);
+    err = map_4d(&tv, a.v, DV, a.Sk, KV, B, a.v_ss, a.v_sh, a.v_sb, kTK);
   if (err != 0) return err;
   Dims p;
   p.o = a.o;
@@ -708,7 +735,7 @@ int launch_wgmma(const Params& a, int B, int H, int KV, cudaStream_t st) {
   p.n_qt = (a.S + kTQ - 1) / kTQ;
   p.scale_log2 = a.scale * 1.4426950408889634f;
   cudaError_t ce = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DH>,
+      flash_attention_wgmma_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   int dev = 0, sms = 0;
   if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
@@ -717,7 +744,7 @@ int launch_wgmma(const Params& a, int B, int H, int KV, cudaStream_t st) {
   if (ce != cudaSuccess) return (int)ce;
   const long long n_work = (long long)p.n_qt * H * B;
   const int grid = n_work < sms ? (int)n_work : sms;
-  flash_attention_wgmma_kernel<DH>
+  flash_attention_wgmma_kernel<DQK, DV>
       <<<grid, kThreadsW, T::kSmemBytes, st>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -736,7 +763,7 @@ int launch_f32(void (*kernel)(const Params), int bytes, const Params& p, int B,
 template <int DH>
 int launch_dh(const Params& p, bool bf16, int B, int H, int KV,
               cudaStream_t stream) {
-  if (bf16) return launch_wgmma<DH>(p, B, H, KV, stream);
+  if (bf16) return launch_wgmma<DH, DH>(p, B, H, KV, stream);
   return launch_f32(flash_attention_f32_kernel<DH>, f32_smem_bytes<DH>(), p,
                     B, H, stream);
 }
@@ -746,18 +773,20 @@ int launch_dh(const Params& p, bool bf16, int B, int H, int KV,
 extern "C" {
 
 // Enqueues one kernel on `stream` and returns 0 or an error code for
-// flash_attention_error_string. dtype: 0 float32, 1 bfloat16; dh in
-// {32, 64, 80, 112, 128}; S >= 1, Sk >= 1, and Sk >= S when causal.
+// flash_attention_error_string. dtype: 0 float32, 1 bfloat16; q/k width
+// dh and v width dv: dh = dv in {32, 64, 80, 112, 128}, or in bfloat16
+// dh 192, dv 128 (the output is [B, H, S, dv]); S >= 1, Sk >= 1, and
+// Sk >= S when causal.
 // Strides are in elements, the last dim contiguous; for bfloat16 the
 // pointers are 16-byte aligned and the strides multiples of 8 (TMA).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KV, int S,
-                           int Sk, int dh, long long q_sb, long long q_sh,
-                           long long q_ss, long long k_sb, long long k_sh,
-                           long long k_ss, long long v_sb, long long v_sh,
-                           long long v_ss, long long o_sb, long long o_sh,
-                           long long o_ss, int causal, int window, float scale,
-                           void* stream) {
+                           int Sk, int dh, int dv, long long q_sb,
+                           long long q_sh, long long q_ss, long long k_sb,
+                           long long k_sh, long long k_ss, long long v_sb,
+                           long long v_sh, long long v_ss, long long o_sb,
+                           long long o_sh, long long o_ss, int causal,
+                           int window, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -776,6 +805,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.scale = scale;
   const bool bf16 = dtype == 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh != dv) {
+    if (dh == 192 && dv == 128 && bf16)
+      return launch_wgmma<192, 128>(p, B, H, KV, st);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (dh) {
     case 32: return launch_dh<32>(p, bf16, B, H, KV, st);
     case 64: return launch_dh<64>(p, bf16, B, H, KV, st);

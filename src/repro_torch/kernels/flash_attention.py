@@ -5,8 +5,9 @@ beside a plain PyTorch version of the same function in this module. It
 replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` and computes ``softmax(q·kᵀ·scale + mask)·v``:
 
-* q [B, H, S, dh]; k, v [B, KV, Sk, dh]; query head ``h`` reads kv head
-  ``h // (H // KV)``;
+* q, k [B, H or KV, S or Sk, dh]; v [B, KV, Sk, dv] with dv = dh, or
+  narrower where latent attention's q/k carry a rope part that v lacks;
+  query head ``h`` reads kv head ``h // (H // KV)``;
 * queries are aligned to the end of the keys (``q_offset = Sk - S``);
   causal keeps ``kpos <= qpos``, a window ``w > 0`` also
   ``kpos > qpos - w``; masked scores are the finite ``NEG_INF``;
@@ -32,9 +33,12 @@ from . import _build, _shards
 
 _SRC = _build.CSRC / "flash_attention.cu"
 NEG_INF = -1e30
-# every d_head of the repo's configs, full and reduced (the Pallas kernel
-# takes any dh)
+# the head dims the kernel takes where q, k and v are alike: those of the
+# registry's configs, full and reduced (the Pallas kernel takes any dh)
 HEAD_DIMS = (32, 64, 80, 112, 128)
+# (q/k, v) widths it takes where they differ, in bfloat16 only: latent
+# attention's 128 + 64 rope against v 128 (DeepSeek-V3, Kimi-K2)
+QK_V_DIMS = ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,7 +57,7 @@ def _keep(S: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
                           scale=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention`: expand the kv
-    heads, then float32 scores, mask, softmax and output."""
+    heads, then float32 scores, mask, softmax and output (v's width)."""
     H, dh = q.shape[1], q.shape[3]
     S, Sk = q.shape[2], k.shape[2]
     g = H // k.shape[1]
@@ -77,7 +81,7 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load(_SRC)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
-        [vp, vp, vp, vp] + [i32] * 7 + [i64] * 12
+        [vp, vp, vp, vp] + [i32] * 8 + [i64] * 12
         + [i32, i32, ctypes.c_float, vp])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -88,18 +92,20 @@ def load_library() -> ctypes.CDLL:
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     scale=None) -> torch.Tensor:
-    """q: [B, H, S, dh]; k, v: [B, KV, Sk, dh] with H % KV == 0.
+    """q: [B, H, S, dh]; k: [B, KV, Sk, dh]; v: [B, KV, Sk, dv] with
+    H % KV == 0.
 
-    Returns [B, H, S, dh] in q's dtype. CPU tensors run
+    Returns [B, H, S, dv] in q's dtype. CPU tensors run
     :func:`flash_attention_plain`; CUDA tensors launch the kernel, which
     takes float32 (on the CUDA cores) or bfloat16 (on the tensor cores,
-    through TMA: 16-byte aligned, strides multiples of 8), dh in
-    ``HEAD_DIMS``, and Sk >= S when causal. Off the CPU, inputs that
-    autograd would differentiate raise ``RuntimeError`` (the kernel has no
-    backward: :func:`._build.refuse_grad`)."""
+    through TMA: 16-byte aligned, strides multiples of 8), dh = dv in
+    ``HEAD_DIMS`` or, in bfloat16, (dh, dv) in ``QK_V_DIMS``, and Sk >= S
+    when causal. Off the CPU, inputs that autograd would differentiate
+    raise ``RuntimeError`` (the kernel has no backward:
+    :func:`._build.refuse_grad`)."""
     B, H, S, dh = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    if k.shape != (B, KV, Sk, dh) or v.shape != k.shape:
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (B, KV, Sk, dh) or v.shape != (B, KV, Sk, dv):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     if H % KV:
@@ -114,8 +120,11 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                          "float32 or all bfloat16")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    if dh not in HEAD_DIMS:
+    if dh == dv and dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if dh != dv and ((dh, dv) not in QK_V_DIMS or q.dtype != torch.bfloat16):
+        raise ValueError(f"q/k width {dh} and v width {dv}: want them equal "
+                         f"or, in bfloat16, one of {QK_V_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"the head dim of {name} must be contiguous")
@@ -129,12 +138,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise ValueError(f"S {S}, Sk {Sk}: want both >= 1 and Sk >= S when "
                          "causal")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
-    out = torch.empty((B, H, S, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, S, dv), dtype=q.dtype, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, KV, S, Sk, dh,
+            _DTYPES[q.dtype], B, H, KV, S, Sk, dh, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(bool(causal)), int(window), scale,
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -1,4 +1,5 @@
-"""Grouped-query attention with RoPE, full / sliding-window masks, KV cache.
+"""Grouped-query attention with RoPE, full / sliding-window masks, KV cache;
+and latent attention (MLA) with its latent cache.
 
 A copy of ``repro/models/attention.py`` in PyTorch. Three entry points
 per layer:
@@ -12,6 +13,15 @@ per layer:
   * ``attend_decode`` — one new token against a KV cache (ring buffer for
     sliding-window configs), in plain torch ops as in the reference.
   * ``init_cache``    — allocate the cache for a decode shape.
+
+Latent attention (``cfg.is_mla``: DeepSeek-V3's, which Kimi-K2 uses; the
+reference has none) has its own: ``mla_train`` (the whole sequence,
+returning the latent cache's entries) and ``mla_decode`` (one token
+against a :class:`LatentCache`, in the absorbed form). Its contraction
+runs on K3 at q/k ``d_head + qk_rope_dim`` and v ``v_head_dim``.
+
+While a profiler records, the contraction, K3 or the einsum chain, is the
+span ``repro_torch.attention.core`` (:mod:`repro_torch.spans`).
 """
 from __future__ import annotations
 
@@ -20,11 +30,15 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels._shards import is_dtensor, on_shards
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .common import (BATCH_AXES, ModelConfig, apply_rope, constraint_spec,
-                     dense_init, head_mask, maybe_shard, summed)
+                     dense_init, head_mask, maybe_shard, rmsnorm, summed,
+                     yarn_softmax_scale)
+
+CORE = "repro_torch.attention.core"
 
 NEG_INF = -1e30
 
@@ -125,8 +139,9 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
         q = maybe_shard(q, BATCH_AXES, None, "model", None)
         k = maybe_shard(k, BATCH_AXES, None, "model", None)
         v = maybe_shard(v, BATCH_AXES, None, "model", None)
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True, window=w)
+        with spans.span(CORE):
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True, window=w)
         out = _masked_heads(out.transpose(1, 2), cfg)
         return summed(torch.einsum("bshk,hkd->bsd", out, params["wo"]))
 
@@ -151,9 +166,10 @@ def attend_train(params, x, cfg: ModelConfig, positions=None, window=None,
     # DTensor einsum flattens the batch and the heads into one dim, which
     # torch 2.11's DTensor refuses when both are sharded. The local
     # gradients leave contiguous: a projection's reshape views them
-    out = (on_shards(lambda *t: core(*map(_ContiguousGrad.apply, t)),
-                     q.placements, q, k, v) if is_dtensor(q)
-           else core(q, k, v))
+    with spans.span(CORE):
+        out = (on_shards(lambda *t: core(*map(_ContiguousGrad.apply, t)),
+                         q.placements, q, k, v) if is_dtensor(q)
+               else core(q, k, v))
     out = _masked_heads(out, cfg)
     return summed(torch.einsum("bshk,hkd->bsd", out, params["wo"]))
 
@@ -165,7 +181,15 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
-               device=None) -> KVCache:
+               device=None):
+    """A layer's empty cache: a :class:`KVCache`, or for latent attention a
+    :class:`LatentCache`."""
+    if cfg.is_mla:
+        return LatentCache(
+            ckv=torch.zeros((batch, cache_len,
+                             cfg.kv_lora_rank + cfg.qk_rope_dim),
+                            dtype=cfg.cache_dtype or dtype, device=device),
+            length=torch.zeros((), dtype=torch.int32, device=device))
     KV, dh = cfg.n_kv_heads_padded, cfg.d_head
     C = min(cache_len, cfg.window) if cfg.attn_variant == "swa" else cache_len
     store = cfg.cache_dtype or dtype
@@ -260,3 +284,109 @@ def attend_decode(params, x, cache: KVCache, cfg: ModelConfig):
     out = _masked_heads(out, cfg)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, KVCache(k=k, v=v, length=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# latent attention (MLA)
+#
+# x [B, S, d] -> cq = RMSNorm(x wq_a) [B, S, q_lora]; q = cq wq_b [B, S, H,
+# dn + dr] = [q_nope | q_pe]; x wkv_a = [c | k_pe] [B, S, kv_lora + dr];
+# c = RMSNorm(c); c wkv_b = [k_nope | v] [B, S, H, dn + dv]; q_pe and the
+# one k_pe a token get YaRN rope (split-half); k = [k_nope | k_pe], k_pe
+# broadcast to the heads; o = softmax(q k^T s + causal) v, s the YaRN
+# softmax scale; y = o wo. The latent cache holds [c | k_pe] a token.
+
+
+def mla_param_shapes(cfg: ModelConfig) -> dict:
+    """name -> (shape, fan_in or None for a gain of ones) of a layer's
+    latent attention."""
+    d, H, dn = cfg.d_model, cfg.n_heads, cfg.d_head
+    r, c, dr, dv = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim,
+                    cfg.v_head_dim)
+    return {"wq_a": ((d, r), d), "q_norm": ((r,), None),
+            "wq_b": ((r, H, dn + dr), r), "wkv_a": ((d, c + dr), d),
+            "kv_norm": ((c,), None), "wkv_b": ((c, H, dn + dv), c),
+            "wo": ((H, dv, d), H * dv)}
+
+
+def init_mla_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = cfg.param_dtype
+    return {n: (torch.ones(s, dtype=dt, device=gen.device) if fan is None
+                else dense_init(gen, fan, s, dt))
+            for n, (s, fan) in mla_param_shapes(cfg).items()}
+
+
+class LatentCache(NamedTuple):
+    ckv: torch.Tensor     # [B, C, kv_lora + qk_rope]: c (normed), k_pe (roped)
+    length: torch.Tensor  # [] int32 — number of valid tokens seen so far
+
+
+def _mla_latent(params, x, cfg: ModelConfig, positions):
+    """x [B, S, d] -> q [B, S, H, dn + dr] (q_pe roped) and the latent
+    [B, S, kv_lora + dr] ([c normed | k_pe roped])."""
+    dn, c = cfg.d_head, cfg.kv_lora_rank
+    cq = rmsnorm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])
+    q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta, cfg.rope_yarn)
+    q = torch.cat([q[..., :dn], q_pe], dim=-1)
+    kv = x @ params["wkv_a"]
+    k_pe = apply_rope(kv[..., None, c:], positions, cfg.rope_theta,
+                      cfg.rope_yarn)[..., 0, :]
+    lat = torch.cat([rmsnorm(kv[..., :c], params["kv_norm"], cfg.norm_eps),
+                     k_pe], dim=-1)
+    return q, lat
+
+
+def mla_train(params, x, cfg: ModelConfig, use_flash_kernel=False):
+    """Causal latent attention over x [B, S, d] -> ([B, S, d], the latent
+    cache's entries [B, S, kv_lora + qk_rope]). ``use_flash_kernel`` runs
+    the contraction on K3 at q/k ``d_head + qk_rope_dim`` and v
+    ``v_head_dim``, v read in place from the ``wkv_b`` product."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.d_head, cfg.qk_rope_dim
+    c = cfg.kv_lora_rank
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, lat = _mla_latent(params, x, cfg, positions)
+    kv = torch.einsum("bsc,chk->bshk", lat[..., :c], params["wkv_b"])
+    k = torch.cat([kv[..., :dn],
+                   lat[..., None, c:].expand(B, S, H, dr)], dim=-1)
+    v = kv[..., dn:]
+    scale = yarn_softmax_scale(dn + dr, cfg.rope_yarn)
+    with spans.span(CORE):
+        if use_flash_kernel:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  scale=scale).transpose(1, 2)
+        else:
+            s = torch.einsum("bshk,bthk->bhst", q, k).float() * scale
+            s = s + _causal_mask(S, S, 0, 0, x.device)[None, None]
+            p = torch.softmax(s, dim=-1).to(x.dtype)
+            out = torch.einsum("bhst,bthk->bshk", p, v)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), lat
+
+
+def mla_decode(params, x, cache: LatentCache, cfg: ModelConfig):
+    """x [B, 1, d]: one token against the latent cache, in the absorbed
+    form: q_nope goes into the latent through ``wkv_b``'s k half, the
+    scores are taken over c and k_pe, and the output p c leaves through
+    its v half. The products are float32. The token's latent is written
+    into ``cache.ckv`` in place; returns (out, the cache with length + 1)."""
+    B = x.shape[0]
+    dn, c = cfg.d_head, cfg.kv_lora_rank
+    C = cache.ckv.shape[1]
+    pos = cache.length
+    q, lat_new = _mla_latent(params, x, cfg, pos.reshape(1, 1).expand(B, 1))
+    _write_slot(cache.ckv, pos.reshape(1).long(), lat_new)
+    lat = cache.ckv.float()                                 # [B, C, c + dr]
+    w = params["wkv_b"].float()                             # [c, H, dn + dv]
+    q = q[:, 0].float()                                     # [B, H, dn + dr]
+    q_lat = torch.einsum("bhk,chk->bhc", q[..., :dn], w[..., :dn])
+    s = (torch.einsum("bhc,btc->bht", q_lat, lat[..., :c])
+         + torch.einsum("bhr,btr->bht", q[..., dn:], lat[..., c:]))
+    s = s * yarn_softmax_scale(dn + cfg.qk_rope_dim, cfg.rope_yarn)
+    valid = torch.arange(C, device=x.device) <= torch.clamp(pos, max=C - 1)
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o = torch.einsum("bht,btc->bhc", p, lat[..., :c])
+    o = torch.einsum("bhc,chk->bhk", o, w[..., dn:]).to(x.dtype)
+    out = torch.einsum("bhk,hkd->bd", o, params["wo"])[:, None]
+    return out, LatentCache(ckv=cache.ckv, length=pos + 1)

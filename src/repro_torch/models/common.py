@@ -16,13 +16,27 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._shards import is_dtensor
+
+
+class Yarn(NamedTuple):
+    """YaRN's rope scaling (``rope_scaling`` of type ``yarn``): the
+    frequencies past the correction range divided by ``factor``, a ramp
+    between, and the softmax scale multiplied by ``mscale(mscale_all_dim)``
+    squared (:func:`yarn_freqs`, :func:`yarn_softmax_scale`)."""
+
+    factor: float
+    original_max: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +63,28 @@ class ModelConfig:
     moe_d_ff: int = 0
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
+    # router: softmax over the experts, or sigmoid scores whose top_k (by
+    # score + a selection-only bias, the layer's ``router_bias``) are
+    # normalised to sum to 1 and scaled by ``routed_scale`` (DeepSeek-V3's
+    # noaux_tc)
+    router_score: str = "softmax"
+    routed_scale: float = 1.0
+    # the expert-parallel share a layer holds: experts [experts_first,
+    # experts_first + experts_held) of the n_experts it routes over
+    # (0: all of them)
+    experts_held: int = 0
+    experts_first: int = 0
+    # leading dense SwiGLU layers (width d_ff) before the expert layers
+    first_dense_layers: int = 0
+
+    # latent attention (MLA) where kv_lora_rank > 0: d_head is then the
+    # rope-free part of a q/k head, qk_rope_dim its rope part (one key a
+    # token, shared by the heads), v_head_dim a value head's width
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    rope_yarn: Optional[Yarn] = None
 
     # KV-cache storage dtype for decode: None -> activation dtype;
     # torch.float8_e4m3fn halves cache bytes
@@ -103,6 +139,20 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def n_held(self) -> int:
+        """The experts a layer holds and computes."""
+        return self.experts_held or self.n_experts
+
+    def has_experts(self, layer: int) -> bool:
+        """Whether layer ``layer`` is an expert layer (past the leading
+        dense ones)."""
+        return self.n_experts > 0 and layer >= self.first_dense_layers
 
     def param_count(self) -> int:
         """Approximate parameter count (for 6ND model-flops accounting)."""
@@ -188,14 +238,57 @@ def rope_freqs(d_head: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
 
 
-def apply_rope(x, positions, theta):
-    """x: [..., S, H, dh]; positions: [..., S] integer. Split-half rotation."""
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_freqs(d_rope: int, theta: float, y: Yarn):
+    """YaRN's rotary frequencies in float64 NumPy (DeepSeek-V3's
+    ``DeepseekV3YarnRotaryEmbedding``): frequency ``i`` is
+    ``theta^(-2i/d)``, divided by ``factor`` past the correction range
+    [floor(c(beta_fast)), ceil(c(beta_slow))] of
+    ``c(b) = d ln(original_max / (2 pi b)) / (2 ln theta)``, linearly
+    between; and the factor on cos and sin, ``mscale(mscale) /
+    mscale(mscale_all_dim)``."""
+    def corr(b):
+        return d_rope * math.log(y.original_max / (b * 2 * math.pi)) / (
+            2 * math.log(theta))
+    lo = max(math.floor(corr(y.beta_fast)), 0)
+    hi = min(math.ceil(corr(y.beta_slow)), d_rope - 1)
+    if lo == hi:
+        hi += 0.001
+    extra = rope_freqs(d_rope, theta)
+    ramp = np.clip((np.arange(d_rope // 2) - lo) / (hi - lo), 0.0, 1.0)
+    keep = 1.0 - ramp  # 1: the frequency as it is, 0: divided by factor
+    freqs = extra / y.factor * (1.0 - keep) + extra * keep
+    return freqs, (_yarn_mscale(y.factor, y.mscale)
+                   / _yarn_mscale(y.factor, y.mscale_all_dim))
+
+
+def yarn_softmax_scale(d_qk: int, y: Optional[Yarn]) -> float:
+    """Attention's softmax scale: ``d_qk^-0.5``, times
+    ``mscale(mscale_all_dim)^2`` under YaRN where ``mscale_all_dim`` is
+    set."""
+    s = d_qk ** -0.5
+    if y is not None and y.mscale_all_dim:
+        s *= _yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return s
+
+
+def apply_rope(x, positions, theta, yarn: Optional[Yarn] = None):
+    """x: [..., S, H, dh]; positions: [..., S] integer. Split-half rotation;
+    ``yarn`` scales the frequencies and cos / sin (:func:`yarn_freqs`)."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta).astype(np.float32),
-                            device=x.device)
+    if yarn is None:
+        f, m = rope_freqs(dh, theta), 1.0
+    else:
+        f, m = yarn_freqs(dh, theta, yarn)
+    freqs = torch.as_tensor(f.astype(np.float32), device=x.device)
     ang = positions[..., None].float() * freqs  # [..., S, dh/2]
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
+    if m != 1.0:
+        cos, sin = cos * m, sin * m
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

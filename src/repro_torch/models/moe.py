@@ -5,6 +5,19 @@ fixed-capacity buffer, the experts run as one batched SwiGLU, and the
 outputs are gathered back weighted by the router's gates. Tokens beyond
 an expert's capacity are dropped (Switch/GShard semantics).
 
+Beyond the reference (DeepSeek-V3's router, which Kimi-K2 uses): with
+``cfg.router_score == "sigmoid"`` the scores are ``sigmoid(x W)``, the
+top_k are chosen by score plus a selection-only bias (the layer's
+``router_bias``; ``noaux_tc`` with one group) and their scores,
+normalised to sum to 1 and times ``routed_scale``, are the gates. A
+layer may hold a share of the experts (``cfg.experts_held`` from
+``experts_first``: one expert-parallel rank's): it routes over all
+``n_experts`` and computes the assignments to the experts it holds; the
+absent experts' terms are left out, and the shared experts, which every
+rank holds, are added once. Buffers, the capacity and the routed tiles
+count the held experts; ``moe.kept`` counts the held assignments kept,
+``moe.assigned`` every assignment.
+
 ``use_kernels=True`` sends the three expert products of a layer through
 K5 (:mod:`repro_torch.kernels.moe_gemm`); ``False`` is the reference's
 einsum route. Both compute the same function. Where JAX has no torch
@@ -66,10 +79,13 @@ _KERNEL_DEVICE = "cuda"
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:
     """name -> (shape, dtype) of a layer's MoE weights, in the reference's
-    shapes; the router is float32 whatever ``param_dtype`` is."""
-    d, E, f, dt = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.param_dtype
-    shapes = {"router": ((d, E), torch.float32), "w1": ((E, d, f), dt),
-              "w3": ((E, d, f), dt), "w2": ((E, f, d), dt)}
+    shapes (the held experts' only); the router, and a sigmoid router's
+    selection bias, are float32 whatever ``param_dtype`` is."""
+    d, E, f, dt = cfg.d_model, cfg.n_held, cfg.moe_d_ff, cfg.param_dtype
+    shapes = {"router": ((d, cfg.n_experts), torch.float32)}
+    if cfg.router_score == "sigmoid":
+        shapes["router_bias"] = ((cfg.n_experts,), torch.float32)
+    shapes.update(w1=((E, d, f), dt), w3=((E, d, f), dt), w2=((E, f, d), dt))
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
         shapes.update(shared_w1=((d, fs), dt), shared_w3=((d, fs), dt),
@@ -82,8 +98,11 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig, out) -> None:
     dim: d for the router, w1, w3; f for w2), written into ``out`` (name ->
     the parameter): each weight is drawn in float32 and copied straight
     into its parameter, so a layer's experts (kimi-k2's are three of 10.5
-    GiB) are never held twice."""
+    GiB) are never held twice. The selection bias starts at zeros."""
     for name, (shape, _) in moe_param_shapes(cfg).items():
+        if name == "router_bias":
+            out[name].zero_()
+            continue
         out[name].copy_(dense_init(gen, shape[-2], shape, torch.float32))
 
 
@@ -124,22 +143,52 @@ def _top_k(probs, K: int):
     return vals[..., :K], idx[..., :K]
 
 
-def _route(xt, router, K: int):
-    """Router in float32: (probs [..., E], gate [..., K], idx [..., K])."""
-    probs = torch.softmax(xt.float() @ router, dim=-1)
-    gate, idx = _top_k(probs, K)
+def _route(xt, router, K: int, bias=None, sigmoid: bool = False,
+           scale: float = 1.0):
+    """Router in float32: (probs [..., E], gate [..., K], idx [..., K]).
+    Softmax: the K largest probabilities, renormalised. ``sigmoid``: the
+    scores s = sigmoid(x W) (returned as ``probs``), idx the K largest of
+    s + ``bias`` (ties to the lower index), gate = s[idx] renormalised
+    times ``scale``: the bias selects and never weighs."""
+    if not sigmoid:
+        probs = torch.softmax(xt.float() @ router, dim=-1)
+        gate, idx = _top_k(probs, K)
+    else:
+        probs = torch.sigmoid(xt.float() @ router)
+        _, idx = _top_k(probs if bias is None else probs + bias, K)
+        gate = torch.gather(probs, -1, idx)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    return probs, gate, idx
+    return probs, gate * scale if scale != 1.0 else gate, idx
 
 
-def _slots(flat_e, C: int):
+def _route_cfg(xt, params, cfg: ModelConfig):
+    """:func:`_route` as ``cfg`` routes."""
+    return _route(xt, params["router"], cfg.top_k, params.get("router_bias"),
+                  cfg.router_score == "sigmoid", cfg.routed_scale)
+
+
+def _held(idx, cfg: ModelConfig):
+    """Expert ids ``idx`` as the held share's: e - experts_first for a held
+    expert, ``n_held`` (after every held one) for an absent one; ``idx``
+    itself where the layer holds every expert."""
+    if cfg.n_held == cfg.n_experts:
+        return idx
+    e = idx - cfg.experts_first
+    return torch.where((e >= 0) & (e < cfg.n_held), e, cfg.n_held)
+
+
+def _slots(flat_e, C: int, held=None):
     """Per-row slot assignment of expert ids ``flat_e`` [..., N]: sort
-    order, (sorted) expert, rank within its expert, and keep = rank < C."""
+    order, (sorted) expert, rank within its expert, and keep = rank < C
+    (and, given the number of experts ``held``, the expert held)."""
     sort = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, -1, sort)
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     rank = torch.arange(flat_e.shape[-1], device=flat_e.device) - first
-    return sort, sorted_e, rank, rank < C
+    keep = rank < C
+    if held is not None:
+        keep = keep & (sorted_e < held)
+    return sort, sorted_e, rank, keep
 
 
 def _experts(buf, params, use_kernels: bool, pin_out: bool = True):
@@ -265,18 +314,18 @@ def moe_ffn_grouped(params, x, cfg: ModelConfig, use_kernels: bool = False):
     and the experts read it as [E, G*C, d]. On a mesh the groups lie on the
     data axes and each rank packs and combines its own."""
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    E, K = cfg.n_held, cfg.top_k
     T = B * S
     G = _pick_groups(T)
     Tg = T // G
     xt = maybe_shard(x.reshape(G, Tg, d), BATCH_AXES, None, None)
-    probs, gate, idx = _route(xt, params["router"], K)       # [G, Tg, ·]
+    probs, gate, idx = _route_cfg(xt, params, cfg)           # [G, Tg, ·]
     C = expert_capacity(Tg, cfg)
     idx, gate = _like(idx, xt), _like(gate, xt)
 
     sort, sorted_e, rank, keep = _on_groups(
-        lambda i: _slots(i.reshape(i.shape[0], Tg * K), C), idx,
-        out=(0, 0, 0, 0))
+        lambda i: _slots(_held(i, cfg).reshape(i.shape[0], Tg * K), C, E),
+        idx, out=(0, 0, 0, 0))
     if _routed(xt, T * K, E, G * C, use_kernels):
         buf, dest, tiles, rows = _pack_routed(E, C, K)(xt, sort, sorted_e,
                                                         rank, keep)
@@ -349,7 +398,10 @@ def _pack_routed(E: int, C: int, K: int):
                         rounding_mode="floor") * ROUTE_ROWS
         end = torch.cumsum(seg, 0)
         first = end - seg + torch.cumsum(cnt, 0) - cnt         # [G, E]
-        dest = torch.where(keep, torch.gather(first, 1, sorted_e) + rank, R)
+        # an absent expert's assignments (id E under a held share, never
+        # kept) look up expert E - 1's start
+        dest = torch.where(keep, torch.gather(
+            first, 1, sorted_e.clamp(max=E - 1)) + rank, R)
         grp = torch.arange(G, device=xt.device)[:, None]
         token = grp * Tg + torch.div(sort, K, rounding_mode="floor")
         buf = xt.new_empty((R + 1, d))                         # + the drop row
@@ -384,19 +436,20 @@ def moe_ffn_flat(params, x, cfg: ModelConfig, use_kernels: bool = False):
     """Single global capacity buffer [E, C, d]. On a mesh every rank packs
     all tokens (replicated) and the buffer's rows go over the data axes."""
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    E, K = cfg.n_held, cfg.top_k
     T = B * S
     xt = x.reshape(T, d)
     mesh = _ambient_mesh()
     if mesh is not None:
         xt = maybe_shard(xt, None, None)
-    probs, gate, idx = _route(xt, params["router"], K)       # [T, ·]
+    probs, gate, idx = _route_cfg(xt, params, cfg)           # [T, ·]
     C = expert_capacity(T, cfg)
     if mesh is not None:
         idx, gate = _like(idx, xt), _like(gate, xt)
 
     sort, sorted_e, rank, keep = _on_groups(
-        lambda i: _slots(i.reshape(T * K), C), idx, out=(0, 0, 0, 0))
+        lambda i: _slots(_held(i, cfg).reshape(T * K), C, E), idx,
+        out=(0, 0, 0, 0))
     _count(E * C, keep, T * K)
     buf, dest = _on_groups(_pack_flat(E, C, K), xt, sort, sorted_e, rank,
                            keep, out=(0, 0))

@@ -10,6 +10,10 @@ and a SwiGLU FFN (hybrid, Hymba-style; the Mamba branch is
 tower's patch embeddings) before its token embeddings. ``EncDecLM`` is a
 local-attention encoder over frontend embeddings (audio frames) and a
 causal decoder whose blocks add cross attention to the encoder's output.
+A moe model may open with dense layers (``cfg.first_dense_layers``), and
+its attention may be latent (MLA, ``cfg.is_mla``; :mod:`.attention`),
+whose prefill returns a stacked :class:`.attention.LatentCache` and whose
+decode attends against it (Kimi-K2; the reference has neither).
 The models are ``nn.Module``s that hold their weights in the reference's
 shapes (``wq`` [d, H, dh], ``wo`` [H, dh, d], ``w1`` [d, f], ``moe.w1``
 [E, d, f], ``tm.mu`` [5, d], …), one block per layer, so a reference
@@ -109,8 +113,8 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig,
-                      cross_attention: bool = False) -> dict:
-    """A layer's weights, but for a moe layer's expert weights:
+                      cross_attention: bool = False, layer: int = 0) -> dict:
+    """Layer ``layer``'s weights, but for a moe layer's expert weights:
     ``DecoderLM.init`` draws those next, straight into their parameters
     (``moe.init_moe_params``). ``cross_attention`` adds a decoder block's
     ``xattn`` and ``ln_x``."""
@@ -120,13 +124,14 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig,
         p["tm"] = ssm_mod.init_rwkv_params(gen, cfg)
         p["cm"] = ssm_mod.init_rwkv_cm_params(gen, cfg)
         return p
-    p["attn"] = attn.init_attn_params(gen, cfg)
+    p["attn"] = (attn.init_mla_params(gen, cfg) if cfg.is_mla
+                 else attn.init_attn_params(gen, cfg))
     if cfg.hybrid:
         p["mamba"] = ssm_mod.init_mamba_params(gen, cfg)
     if cross_attention:
         p["xattn"] = attn.init_attn_params(gen, cfg)
         p["ln_x"] = ones.clone()
-    if not cfg.n_experts:
+    if not cfg.has_experts(layer):
         p["ffn"] = init_ffn_params(gen, cfg)
     return p
 
@@ -137,6 +142,10 @@ def _empty(shape, dtype, device):
 
 def _attn_params(cfg: ModelConfig, device) -> nn.ParameterDict:
     d, dt = cfg.d_model, cfg.param_dtype
+    if cfg.is_mla:
+        return nn.ParameterDict({
+            n: _empty(shape, dt, device)
+            for n, (shape, _) in attn.mla_param_shapes(cfg).items()})
     H, KV, dh = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.d_head
     return nn.ParameterDict({
         "wq": _empty((d, H, dh), dt, device),
@@ -147,16 +156,19 @@ def _attn_params(cfg: ModelConfig, device) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One dense, moe or hybrid block's weights: ``ln1``, ``ln2``,
-    ``attn.{wq,wk,wv,wo}``, and ``ffn.{w1,w3,w2}`` (dense) or
-    ``moe.{router,w1,w3,w2}`` with, given shared experts,
-    ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router float32).
+    ``attn.{wq,wk,wv,wo}`` (latent attention: ``attn.{wq_a, q_norm, wq_b,
+    wkv_a, kv_norm, wkv_b, wo}``), and ``ffn.{w1,w3,w2}`` (dense, or a
+    moe model's leading dense layer ``layer``) or ``moe.{router,w1,w3,w2}``
+    with, given sigmoid routing, ``moe.router_bias`` and, given shared
+    experts, ``moe.{shared_w1,shared_w3,shared_w2}`` (moe; the router and
+    its bias float32).
     A hybrid block adds ``mamba.{in_proj, conv, w_bc, w_dt, dt_bias, logA,
     D, out_proj}`` (``logA`` float32). A decoder block of an
     encoder-decoder (``cross_attention``) adds ``xattn.{wq,wk,wv,wo}`` and
     ``ln_x``."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 cross_attention: bool = False):
+                 cross_attention: bool = False, layer: int = 0):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
         self.ln1 = _empty((d,), dt, device)
@@ -169,7 +181,7 @@ class Block(nn.Module):
         if cross_attention:
             self.xattn = _attn_params(cfg, device)
             self.ln_x = _empty((d,), dt, device)
-        if cfg.n_experts:
+        if cfg.has_experts(layer):
             self.moe = nn.ParameterDict({
                 name: _empty(shape, t, device)
                 for name, (shape, t) in moe_mod.moe_param_shapes(cfg).items()})
@@ -234,10 +246,14 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
         y = ssm_mod.rwkv_channel_mix(p.cm, h2, ssm_mod.token_shift(h2))
         return x + y, aux, kv
     with spans.span("repro_torch.attention"):
-        y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_kernels)
-        if return_kv:
-            # re-derive K/V for the cache, as the reference does
-            kv = _project_kv(p.attn, h, cfg)
+        if cfg.is_mla:  # the cache's latent is attention's own
+            y, kv = attn.mla_train(p.attn, h, cfg,
+                                   use_flash_kernel=use_kernels)
+        else:
+            y = attn.attend_train(p.attn, h, cfg, use_flash_kernel=use_kernels)
+            if return_kv:
+                # re-derive K/V for the cache, as the reference does
+                kv = _project_kv(p.attn, h, cfg)
     if cfg.hybrid:
         ym, m_state = ssm_mod.mamba_scan(p.mamba, h, cfg)
         y = 0.5 * (y + ym)
@@ -249,7 +265,7 @@ def block_train(p, x, cfg: ModelConfig, enc_out=None, return_kv=False,
         x = x + attn.attend_train(p.xattn, hx, cfg, kv_x=enc_out,
                                   causal=False)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
-    if cfg.n_experts:
+    if hasattr(p, "moe"):
         y, moe_aux = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
         aux = moe_aux["lb_loss"]
     else:
@@ -334,6 +350,9 @@ def block_decode(p, x, cache, cfg: ModelConfig, enc_kv=None,
         ym, m_state = ssm_mod.mamba_decode(p.mamba, h, m_state, cfg)
         x = x + 0.5 * (ya + ym)
         new_cache = (kv_cache, m_state)
+    elif cfg.is_mla:
+        y, new_cache = attn.mla_decode(p.attn, h, cache, cfg)
+        x = x + y
     else:
         y, new_cache = attn.attend_decode(p.attn, h, cache, cfg)
         x = x + y
@@ -341,7 +360,7 @@ def block_decode(p, x, cache, cfg: ModelConfig, enc_kv=None,
         hx = rmsnorm(x, p.ln_x, cfg.norm_eps)
         x = x + _cross_attend_cached(p.xattn, hx, enc_kv, cfg)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
-    if cfg.n_experts:
+    if hasattr(p, "moe"):
         y, _ = moe_mod.moe_ffn(p.moe, h, cfg, use_kernels)
     else:
         y = swiglu(h, p.ffn["w1"], p.ffn["w3"], p.ffn["w2"])
@@ -367,16 +386,17 @@ def _cross_attend_cached(ap, x, enc_kv, cfg: ModelConfig):
 
 
 def _fill_block(gen: torch.Generator, cfg: ModelConfig, blk: nn.Module,
-                cross_attention: bool = False):
-    """Fill ``blk``'s weights from ``gen`` (``init_block_params``, then a
-    moe block's experts)."""
-    for key, val in init_block_params(gen, cfg, cross_attention).items():
+                cross_attention: bool = False, layer: int = 0):
+    """Fill layer ``layer``'s ``blk`` from ``gen`` (``init_block_params``,
+    then a moe block's experts)."""
+    for key, val in init_block_params(gen, cfg, cross_attention,
+                                      layer).items():
         if isinstance(val, dict):  # a group: attn, xattn, ffn, mamba, tm, cm
             for name, t in val.items():
                 getattr(blk, key)[name].copy_(t)
         else:
             getattr(blk, key).copy_(val)
-    if cfg.n_experts:
+    if cfg.has_experts(layer):
         moe_mod.init_moe_params(gen, cfg, blk.moe)
 
 
@@ -418,7 +438,7 @@ def _decode_layers(blocks, x, cache, cfg: ModelConfig, enc_kv=None,
     kv, m = cache if cfg.hybrid else (cache, None)
     lengths = []
     for i, blk in enumerate(blocks):
-        layer = attn.KVCache(kv.k[i], kv.v[i], kv.length[i])
+        layer = type(kv)(*(t[i] for t in kv))
         if cfg.hybrid:
             layer = (layer, ssm_mod.MambaState(*(t[i] for t in m)))
         x, layer = block_decode(
@@ -430,7 +450,7 @@ def _decode_layers(blocks, x, cache, cfg: ModelConfig, enc_kv=None,
             for old, t in zip(m, new):
                 old[i].copy_(t)
         lengths.append(layer.length)
-    kv = attn.KVCache(kv.k, kv.v, torch.stack(lengths))
+    kv = kv._replace(length=torch.stack(lengths))
     return x, (kv, m) if cfg.hybrid else kv
 
 
@@ -449,7 +469,8 @@ class DecoderLM(nn.Module):
     length [L] (dense), an ``RWKVState`` shift, shift_cm [L, B, d],
     S [L, B, H, dh, dh] float32 (ssm, whose prefill ignores ``cache_len``,
     as the reference's does), or (KV cache, ``MambaState`` conv
-    [L, B, CONV_K - 1, d], h [L, B, d, n] float32) (hybrid).
+    [L, B, CONV_K - 1, d], h [L, B, d, n] float32) (hybrid), or a latent
+    cache ckv [L, B, C, kv_lora + qk_rope], length [L] (latent attention).
     :meth:`decode_step` updates each in place. A sliding-window cache is a
     ring buffer of ``min(cache_len, window)`` slots, token t at slot
     ``t % C``: a prefill longer than the window rolls its last ``C`` K/V
@@ -479,9 +500,9 @@ class DecoderLM(nn.Module):
         self.remat = remat
         dt, d, vp = cfg.param_dtype, cfg.d_model, cfg.vocab_padded
         self.embed = _empty((vp, d), dt, device)
-        block = RWKVBlock if cfg.family == "ssm" else Block
-        self.blocks = nn.ModuleList(block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            RWKVBlock(cfg, device) if cfg.family == "ssm"
+            else Block(cfg, device, layer=i) for i in range(cfg.n_layers))
         self.final_norm = _empty((d,), dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = _empty((d, vp), dt, device)
@@ -498,8 +519,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         self.embed.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                     cfg.param_dtype))
-        for blk in self.blocks:
-            _fill_block(gen, cfg, blk)
+        for i, blk in enumerate(self.blocks):
+            _fill_block(gen, cfg, blk, layer=i)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(embed_init(gen, cfg.vocab_padded, cfg.d_model,
@@ -605,6 +626,8 @@ class DecoderLM(nn.Module):
             x = rmsnorm(x, self.final_norm, cfg.norm_eps)
             return self._logits(x[:, -1:]), ssm_mod.RWKVState(
                 *(torch.stack(t) for t in zip(*states)))
+        if cfg.is_mla:
+            return self._prefill_latent(x, cache_len)
         ks, vs, ms = [], [], []
         for blk in self.blocks:
             x, _, kv = block_train(blk, x, cfg, return_kv=True,
@@ -637,6 +660,29 @@ class DecoderLM(nn.Module):
             cache = (cache, ssm_mod.MambaState(
                 *(torch.stack(t) for t in zip(*ms))))
         return self._logits(x[:, -1:]), cache
+
+    def _prefill_latent(self, x, cache_len: int):
+        """Latent attention's prefill: each layer's [c | k_pe] a token
+        stacked into a :class:`.attention.LatentCache` of ``cache_len``
+        slots (at least the prompt's)."""
+        cfg = self.cfg
+        S = x.shape[1]
+        lats = []
+        for blk in self.blocks:
+            x, _, lat = block_train(blk, x, cfg, return_kv=True,
+                                    use_kernels=self.use_kernels)
+            lats.append(lat)
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        ckv = torch.stack(lats)
+        del lats
+        if cache_len > S:
+            ckv = F.pad(ckv, (0, 0, 0, cache_len - S))
+        if cfg.cache_dtype is not None:
+            ckv = ckv.to(cfg.cache_dtype)
+        length = torch.full((cfg.n_layers,), S, dtype=torch.int32,
+                            device=x.device)
+        return self._logits(x[:, -1:]), attn.LatentCache(ckv=ckv,
+                                                         length=length)
 
 
 class EncDecLM(nn.Module):

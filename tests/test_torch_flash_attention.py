@@ -15,10 +15,11 @@ The same inputs, made from a seed with NumPy (bfloat16 ones cast with
 Tolerances are the reference's own (tests/test_kernels.py): 2e-4 in
 float32, 5e-2 in bfloat16. On the CPU the port's wrapper runs its plain
 PyTorch version (the tensors lie on the CPU); the kernel itself is held
-to that plain version by the ``cuda``-marked test, which skips on a host
-without a CUDA device. Both compute in float32, so that test is tighter:
-atol 1e-4 + rtol 1e-2 in bfloat16 (one output rounding step), 1e-5 in
-float32.
+to that plain version by the ``cuda``-marked tests, which skip on a host
+without a CUDA device; one of them at latent attention's q/k 192 against
+v 128 in bfloat16, with q, k and v laid out as the model passes them.
+Both compute in float32, so those tests are tighter: atol 1e-4 + rtol
+1e-2 in bfloat16 (one output rounding step), 1e-5 in float32.
 """
 import jax
 import jax.experimental
@@ -194,3 +195,40 @@ def test_kernel_matches_plain_on_card(B, H, KV, S, Sk, dh, causal, window,
     tol = (dict(atol=1e-4, rtol=1e-2) if dtype == torch.bfloat16
            else dict(atol=1e-5, rtol=1e-5))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,Sk,causal", [
+    (1, 64, 64, 512, 512, True),     # Kimi-K2's 64 heads, MLA's KV = H
+    (2, 8, 8, 300, 300, True),       # ragged S
+    (1, 8, 8, 70, 300, True),        # S < Sk
+    (1, 16, 4, 256, 256, True),      # grouped, 4:1
+    (2, 8, 8, 200, 333, False),      # non-causal, ragged
+    (1, 4, 4, 1, 1, True),           # one query, one key
+])
+def test_kernel_at_qk_192_v_128_matches_plain_on_card(B, H, KV, S, Sk,
+                                                     causal):
+    """As ``models.attention.mla_train`` passes them: q [B, S, H, 192]
+    and k = [k_nope | the one k_pe broadcast] made whole, v a view of
+    the [k_nope | v] product's last 128 columns, all seen as [B, H, S,
+    .] through a transpose; the scale YaRN's, 0.1308608."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(dev).manual_seed(11)
+    q = torch.randn(B, S, H, 192, generator=g, device=dev).bfloat16()
+    kv = torch.randn(B, Sk, KV, 256, generator=g, device=dev).bfloat16()
+    pe = torch.randn(B, Sk, 1, 64, generator=g, device=dev).bfloat16()
+    k = torch.cat([kv[..., :128], pe.expand(B, Sk, KV, 64)], dim=-1)
+    v = kv[..., 128:]
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(*args, causal=causal, scale=0.1308608)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    assert got.shape == (B, H, S, 128)
+    want = fa.flash_attention_plain(*args, causal=causal, scale=0.1308608)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=1e-2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(*(t.float() for t in args), causal=causal)
